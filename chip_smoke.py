@@ -22,7 +22,26 @@ exits non-zero):
      block was produced, and prints the real-time factor;
   4. -d 60 to a file through the CLI, then blocks 0-1 and 300-301
      recomputed with IqStream(device="cpu") must equal the file;
-  5. a JSON line per the kernels, the card line, and the result line.
+  5. golden: the f64 precise path on the card equals its CPU run word
+     for word (4 blocks); the kernel equals precise on the card with
+     array_equal at 4 blocks and within the short gate (>= 1-2e-6
+     exact, max err <= 8) on a 300-block superframe; the tiled path on
+     the card equals its CPU run (4 blocks) and tracks precise (>= 0.999
+     exact, SNR >= 70 dB) over the 300 blocks; both paths timed;
+  6. Monte-Carlo, held: B=4 receivers a few metres apart, 8 blocks from
+     0.4 s before a 30 s boundary; each receiver's rows equal a solo
+     IqStream(mode="kernel") on the card word for word;
+  7. Monte-Carlo, full width: B=256 receivers within +-2 km of Tokyo x
+     300 blocks at 2.6 MHz (76,800 rows), chunks of 3,000 rows consumed
+     on the card by an int64 sum; the first chunk equals the twin run on
+     the card; 0 patch words dropped;
+  8. receiver: the CLI writes 40 s on the card with --selfcheck, and the
+     software receiver's fix from that file lands within 8 m with every
+     planned PRN and a static velocity under 0.15 m/s;
+  9. io: -d 3 --realtime to a file is paced by the native ring writer
+     (>= 2.7 s) and writes the bytes of an unpaced run; --profile writes
+     a Chrome trace that holds the kernel;
+ 10. a JSON line per the kernels, the card line, and the result line.
 
 Uses only this package (never jax) and the tracked RINEX fixture
 tests/data/brdc_test.23n.  Extra logs go to chiprun_out/chip_smoke/.
@@ -46,6 +65,8 @@ LLH = "35.681298,139.766247,10.0"
 OUT_DIR = ROOT / "chiprun_out" / "chip_smoke"
 TIMED_BLOCKS = 300          # one 30 s superframe at 2.6 MHz
 TIMED_SAMPLES = 260_000
+FS = 2_600_000.0
+MC_B, MC_CHUNK = 256, 3000  # the full-width Monte-Carlo batch
 
 
 def _phase(name: str, t0: float, msg: str = "") -> None:
@@ -323,6 +344,277 @@ def _cli(argv: list[str]) -> tuple[int, str]:
     return rc, tee.buf.getvalue()
 
 
+def _precise_iq(dp, device):
+    from pluto_gps_sim_tpu_torch.ops.synth_torch import (
+        synth_superframe_precise_async)
+    return synth_superframe_precise_async(dp, device)
+
+
+def _kernel_iq(dp):
+    """The kernel's int16 IQ [M, N, 2] for one DevicePlan, on the card."""
+    import torch
+
+    from pluto_gps_sim_tpu_torch.ops import synth_cuda as sc
+    bp, ca, sf_map, n = _inputs([dp])
+    assert bp.patch_dropped == 0
+    packed = sc.synth_blocks(*_to("cuda", bp, ca, sf_map), n)
+    return torch.stack([(packed << 16) >> 16, packed >> 16],
+                       dim=-1).to(torch.int16)
+
+
+def _exact_err(a, b) -> tuple[float, int]:
+    """Exact fraction and max |difference| of two int16 IQ tensors."""
+    import torch
+    d = (a.to(torch.int32) - b.to(torch.int32)).abs()
+    return float((d == 0).double().mean()), int(d.max())
+
+
+def _snr_db(ref, got) -> float:
+    import torch
+    ref = ref.to(torch.float64)
+    err = ref - got.to(torch.float64)
+    return float(10 * torch.log10((ref ** 2).mean()
+                                  / (err ** 2).mean().clamp_min(1e-30)))
+
+
+def phase_golden(scen) -> dict:
+    """The f64 precise path as the golden reference on the card."""
+    import numpy as np
+    import torch
+
+    from pluto_gps_sim_tpu_torch.ops.synth_torch import (
+        pack_plan, synth_superframe_tiled_async)
+    from pluto_gps_sim_tpu_torch.runtime.scheduler import Scheduler
+    from pluto_gps_sim_tpu_torch.runtime.stream import IqStream
+    rin, g0, ieph, xyz = scen
+    t0 = time.perf_counter()
+    dp4 = pack_plan(Scheduler(rin, g0, ieph, xyz, fs=FS).plan(4))
+    p4 = _precise_iq(dp4, "cuda")
+    p4_cpu = _precise_iq(dp4, "cpu")
+    if not np.array_equal(p4.cpu().numpy(), p4_cpu.numpy()):
+        raise AssertionError("precise on the card differs from precise on "
+                             "the CPU (4 blocks)")
+    k4 = _kernel_iq(dp4)
+    ex4, err4 = _exact_err(k4, p4)
+    if not torch.equal(k4, p4):
+        raise AssertionError(f"kernel vs precise, 4 blocks: exact {ex4:.6%}"
+                             f", max err {err4} (array_equal required)")
+    t4 = synth_superframe_tiled_async(dp4, "cuda")
+    if not np.array_equal(t4.cpu().numpy(),
+                          synth_superframe_tiled_async(dp4, "cpu").numpy()):
+        raise AssertionError("tiled on the card differs from tiled on the "
+                             "CPU (4 blocks)")
+    for mode in ("tiled", "precise"):     # the stream's planner path
+        got = IqStream(rin, g0, ieph, xyz, fs=FS, mode=mode,
+                       device="cuda").generate(4)
+        if not np.array_equal(got, p4_cpu.numpy()):
+            raise AssertionError(f"IqStream(mode={mode!r}) on the card "
+                                 "differs from precise (4 blocks)")
+    _phase("golden 4 blocks", t0, "precise cuda == cpu, kernel == precise, "
+           "tiled cuda == cpu, stream tiled/precise == precise (word for "
+           "word)")
+
+    t0 = time.perf_counter()
+    dp = pack_plan(Scheduler(rin, g0, ieph, xyz, fs=FS).plan(TIMED_BLOCKS))
+    prec = _precise_iq(dp, "cuda")
+    kern = _kernel_iq(dp)
+    tiled = synth_superframe_tiled_async(dp, "cuda")
+    ex_k, err_k = _exact_err(kern, prec)
+    ex_t, _ = _exact_err(tiled, prec)
+    snr_t = _snr_db(prec, tiled)
+    if ex_k < 1 - 2e-6 or err_k > 8:
+        raise AssertionError(f"kernel vs precise, {TIMED_BLOCKS} blocks: "
+                             f"exact {ex_k:.8%}, max err {err_k}")
+    if ex_t < 0.999 or snr_t < 70.0:
+        raise AssertionError(f"tiled vs precise: exact {ex_t:.6%}, "
+                             f"SNR {snr_t:.1f} dB")
+    del prec, kern, tiled
+    precise_ms = _time_ms(lambda: _precise_iq(dp, "cuda"), reps=3)
+    tiled_ms = _time_ms(lambda: synth_superframe_tiled_async(dp, "cuda"),
+                        reps=3)
+    _phase(f"golden {TIMED_BLOCKS} blocks", t0,
+           f"kernel vs precise exact {ex_k:.8%} max err {err_k}; tiled vs "
+           f"precise exact {ex_t:.6%} SNR {snr_t:.1f} dB; precise "
+           f"{precise_ms:.1f} ms, tiled {tiled_ms:.1f} ms per superframe")
+    return {"kernel_vs_precise_exact": ex_k, "kernel_vs_precise_max_err":
+            err_k, "tiled_vs_precise_exact": ex_t, "tiled_snr_db": snr_t,
+            "precise_ms": precise_ms, "tiled_ms": tiled_ms}
+
+
+def _scattered_receivers(b: int):
+    """B receivers a few metres apart around Tokyo (the JAX package's
+    Monte-Carlo tests' seed and spread)."""
+    import numpy as np
+
+    from pluto_gps_sim_tpu_torch.constants import R2D
+    from pluto_gps_sim_tpu_torch.models.geodesy import llh2xyz
+    rng = np.random.RandomState(5)
+    base = np.array([35.681298 / R2D, 139.766247 / R2D, 10.0])
+    return np.stack([np.asarray(llh2xyz(base + np.array(
+        [rng.uniform(-1e-4, 1e-4), rng.uniform(-1e-4, 1e-4),
+         rng.uniform(0, 100)]))) for _ in range(b)])
+
+
+def phase_mc_held(scen) -> None:
+    """Batch rows == solo kernel streams, across a 30 s boundary."""
+    import numpy as np
+
+    from pluto_gps_sim_tpu_torch.models.gpstime import inc_gps_time
+    from pluto_gps_sim_tpu_torch.parallel import MonteCarloBatch
+    from pluto_gps_sim_tpu_torch.runtime.stream import IqStream
+    rin, g0, ieph, _ = scen
+    t0 = time.perf_counter()
+    rem = (30.0 - (g0.sec % 30.0)) % 30.0
+    g0b = inc_gps_time(g0, rem + 30.0 - 0.4)
+    xyz = _scattered_receivers(4)
+    mc = MonteCarloBatch(rin, g0b, ieph, xyz, fs=FS)
+    batch = mc.generate(8, "cuda")
+    assert mc.nav_cache.hits > 0 and mc.patch_dropped == 0
+    for b in range(xyz.shape[0]):
+        solo = IqStream(rin, g0b, ieph, xyz[b], fs=FS, mode="kernel",
+                        device="cuda").generate(8)
+        if not np.array_equal(batch[b], solo):
+            raise AssertionError(
+                f"receiver {b}: batch rows differ from the solo stream in "
+                f"{int((batch[b] != solo).sum())} components")
+    _phase("montecarlo held B=4 x 8 blocks", t0,
+           "every receiver == its solo kernel stream across the boundary")
+
+
+def phase_mc_full(scen) -> tuple[int, int, dict]:
+    """B=256 x 300 blocks through the kernel, consumed on the card."""
+    import numpy as np
+    import torch
+
+    from pluto_gps_sim_tpu_torch.ops import synth_cuda as sc
+    from pluto_gps_sim_tpu_torch.parallel import MonteCarloBatch
+    rin, g0, ieph, xyz0 = scen
+    xyz = xyz0[None, :] + np.random.RandomState(0).uniform(
+        -2000.0, 2000.0, (MC_B, 3))
+    t0 = time.perf_counter()
+    mc = MonteCarloBatch(rin, g0, ieph, xyz, fs=FS)
+    init_s = time.perf_counter() - t0
+    planned = {}
+    plan_blocks = mc.plan_blocks
+
+    def keep_plan(n):
+        planned["args"] = plan_blocks(n)
+        return planned["args"]
+    mc.plan_blocks = keep_plan
+
+    torch.cuda.synchronize()
+    sc.reset_launch_count()
+    t1 = time.perf_counter()
+    rows, total, first, pending = 0, 0, None, None
+    for off, dev in mc.superframes(TIMED_BLOCKS, "cuda",
+                                   chunk_blocks=MC_CHUNK, as_device=True):
+        if first is None:
+            first = dev
+        s = dev.sum(dtype=torch.int64)
+        if pending is not None:
+            total += int(pending)      # lag-1: chunk k-1's sum
+        pending = s
+        rows += dev.shape[0]
+    total += int(pending)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t1
+    launches = sc.launch_count()
+    n_rows = MC_B * TIMED_BLOCKS
+    assert rows == n_rows, (rows, n_rows)
+    assert launches > 0, "the Monte-Carlo path never launched the kernel"
+    assert mc.patch_dropped == 0, mc.patch_dropped
+    assert total != 0, "all-zero Monte-Carlo output"
+
+    prmi, prmf, ca2, sf_map = planned["args"]
+    args = [torch.from_numpy(a[:MC_CHUNK] if a is not ca2 else a).to("cuda")
+            for a in (prmi, prmf, ca2, sf_map)]
+    twin = sc.synth_blocks_plain(*args, mc.block_samples)
+    bad = int((twin != first).sum())
+    err = _dev_max_abs_err(first, twin)
+    if bad:
+        raise AssertionError(f"Monte-Carlo chunk 0 differs from the twin "
+                             f"on the card in {bad} words (max err {err})")
+    dev_s = loop_s - mc.control_seconds
+    gsps = n_rows * TIMED_SAMPLES / loop_s / 1e9
+    _phase(f"montecarlo B={MC_B} x {TIMED_BLOCKS} blocks", t0,
+           f"rows={rows} launches={launches} tables={ca2.shape[0]} "
+           f"patch_dropped={mc.patch_dropped} chunk0 == twin; init "
+           f"{init_s:.3f} s, control {mc.control_seconds:.3f} s, device+"
+           f"consume {dev_s:.3f} s, aggregate {gsps:.2f} Gsample/s")
+    return launches, err, {"init_s": init_s,
+                           "control_s": mc.control_seconds,
+                           "device_consume_s": dev_s,
+                           "aggregate_gsps": gsps}
+
+
+def phase_receiver(scen) -> dict:
+    """A 40 s file written on the card, fixed by the software receiver."""
+    import numpy as np
+
+    from pluto_gps_sim_tpu_torch.runtime.scheduler import Scheduler
+    from pluto_gps_sim_tpu_torch.utils.receiver import receive_and_fix
+    rin, g0, ieph, xyz = scen
+    t0 = time.perf_counter()
+    plan = Scheduler(rin, g0, ieph, xyz, fs=FS).plan(1)
+    planned = sorted(int(p) for p, act in zip(plan.prn, plan.active[0])
+                     if p > 0 and act)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "out40.bin")
+        rc, err = _cli(["-e", str(RINEX), "-l", LLH, "-s", "2600000",
+                        "-d", "40", "-o", path, "--device", "cuda",
+                        "--selfcheck"])
+        assert rc == 0, f"CLI exited {rc}"
+        assert "selfcheck: PASS" in err, "selfcheck did not pass"
+        t1 = time.perf_counter()
+        sol, _ = receive_and_fix(np.fromfile(path, dtype=np.int16), FS,
+                                 ref_week=g0.week,
+                                 measure_sample=int(round(FS)))
+        rx_s = time.perf_counter() - t1
+    fix_err = float(np.linalg.norm(sol.xyz - xyz))
+    speed = float(np.linalg.norm(sol.velocity.vel))
+    if sorted(sol.prns) != planned:
+        raise AssertionError(f"fix used PRNs {sorted(sol.prns)}, planned "
+                             f"{planned}")
+    if fix_err >= 8.0 or speed >= 0.15:
+        raise AssertionError(f"fix error {fix_err:.2f} m, |v| "
+                             f"{speed:.3f} m/s")
+    _phase("receiver 40 s", t0,
+           f"selfcheck PASS; fix error {fix_err:.2f} m with PRNs "
+           f"{sol.prns}, |v| {speed:.4f} m/s, receiver {rx_s:.1f} s")
+    return {"fix_err_m": fix_err, "speed_m_s": speed, "receiver_s": rx_s}
+
+
+def phase_io() -> float:
+    """--realtime paces through the native ring writer, same bytes;
+    --profile traces the kernel on the card."""
+    t0 = time.perf_counter()
+    base = ["-e", str(RINEX), "-l", LLH, "-s", "2600000", "-d", "3",
+            "--device", "cuda"]
+    with tempfile.TemporaryDirectory() as tmp:
+        paced, plain = (os.path.join(tmp, f) for f in ("rt.bin", "no.bin"))
+        t1 = time.perf_counter()
+        rc, err = _cli(base + ["-o", paced, "--realtime"])
+        wall = time.perf_counter() - t1
+        assert rc == 0, f"CLI exited {rc}"
+        assert "WARNING" not in err, "the native ring writer was not used"
+        assert wall >= 2.7, f"3 s of signal written in {wall:.2f} s"
+        prof = os.path.join(tmp, "prof")
+        rc, _ = _cli(base + ["-o", plain, "--profile", prof])
+        assert rc == 0, f"CLI exited {rc}"
+        same = Path(paced).read_bytes() == Path(plain).read_bytes()
+        if not same:
+            raise AssertionError("the paced file differs from the unpaced")
+        events = json.loads(Path(prof, "trace.json").read_text())
+        kernels = [e for e in events["traceEvents"]
+                   if e.get("cat") == "kernel"
+                   and "synth_blocks" in e.get("name", "")]
+        assert kernels, "the profiler trace holds no synth_blocks kernel"
+    _phase("io -d 3 --realtime, --profile", t0,
+           f"paced wall {wall:.3f} s, bytes equal the unpaced run's; "
+           f"trace holds {len(kernels)} synth_blocks kernel(s)")
+    return wall
+
+
 def phase_main_path() -> tuple[int, float]:
     from pluto_gps_sim_tpu_torch.ops import synth_cuda as sc
     t0 = time.perf_counter()
@@ -401,16 +693,26 @@ def main() -> int:
     ms, plain_ms = phase_timing()
     launches, rtf = phase_main_path()
     phase_file(scen)
+    golden = phase_golden(scen)
+    phase_mc_held(scen)
+    mc_launches, mc_err, mc = phase_mc_full(scen)
+    receiver = phase_receiver(scen)
+    realtime_wall = phase_io()
     assert "jax" not in sys.modules, "the port imported jax"
 
     kernels = {"kernels": [{
         "name": "synth_blocks", "route": "cuda",
         "source": "pluto_gps_sim_tpu_torch/ops/csrc/synth_blocks.cu",
         "replaces": "pluto_gps_sim_tpu/ops/synth_pallas.py:194",
-        "launches": launches, "max_abs_err": max_err,
+        "paths": ["stream", "montecarlo"],
+        "path_launches": {"stream": launches, "montecarlo": mc_launches},
+        "launches": launches + mc_launches,
+        "max_abs_err": max(max_err, mc_err),
         "ms": ms, "plain_ms": plain_ms}]}
     (OUT_DIR / "result.json").write_text(json.dumps(
         {**kernels, "card": card, "realtime_factor": rtf,
+         "golden": golden, "montecarlo": mc, "receiver": receiver,
+         "realtime_wall_s": realtime_wall,
          "wall_s": time.perf_counter() - t_all}, indent=1))
     _phase("all", t_all)
     print(json.dumps(kernels))

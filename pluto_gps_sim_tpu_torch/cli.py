@@ -35,20 +35,20 @@ Intentional divergences (each documented in SURVEY.md section 5):
     -s 3000000 for code-default parity;
   * new flags for the pluggable output stage (the reference can only
     transmit to a Pluto SDR): -o/--out, --sink, -d/--duration,
-    --realtime, --device, plus --snapshot/--resume checkpointing.
+    --realtime, --mode, --device, plus --snapshot/--resume checkpointing.
 
-The option surface is the JAX package's (pluto_gps_sim_tpu/cli.py) with
---mode replaced by --device cuda|cpu: cuda runs the CUDA synthesis
-kernel, cpu its plain PyTorch twin, and nothing picks one silently.
-Options whose backends are not ported yet (-f, -U/-N, --realtime,
---sink udp|iio, --selfcheck, --profile) are accepted by the parser and
-exit 1 with a message saying so.
+The option surface is the JAX package's (pluto_gps_sim_tpu/cli.py).  Its
+--mode auto|pallas|tiled|precise becomes --mode kernel|tiled|precise
+(default kernel: the CUDA synthesis kernel, or its plain PyTorch twin on
+the CPU) beside --device cuda|cpu (default cuda); nothing picks a path
+or a device silently.  --profile writes a torch.profiler Chrome trace.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import signal
 import sys
@@ -132,9 +132,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="signal duration in seconds (0 = endless)")
     p.add_argument("--realtime", action="store_true",
                    help="pace output to fs via the native ring writer")
+    p.add_argument("--mode", choices=["kernel", "tiled", "precise"],
+                   default="kernel",
+                   help="synthesis path (kernel = the CUDA kernel, or its "
+                   "plain PyTorch twin on --device cpu; tiled = integer "
+                   "NCO tensor path; precise = f64 golden)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="synthesis device (cuda = the CUDA kernel, cpu = "
-                   "its plain PyTorch twin)")
+                   help="synthesis device")
     p.add_argument("--udp-host", default="127.0.0.1")
     p.add_argument("--udp-port", type=int, default=5015)
     p.add_argument("--snapshot", metavar="FILE",
@@ -149,7 +153,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "receivable (software stand-in for the reference's "
                         "hardware-receiver validation)")
     p.add_argument("--profile", metavar="DIR",
-                   help="capture a profiler trace of the run into DIR")
+                   help="capture a torch.profiler Chrome trace of the run "
+                   "into DIR/trace.json")
     p.add_argument("--dispatch-superframes", type=int, default=1,
                    metavar="K",
                    help="batch K consecutive 30 s superframes per device "
@@ -191,17 +196,6 @@ def _parse_time(s: str) -> GpsTime:
 def main(argv: list[str] | None = None) -> int:
     args = parse_cli(argv)
 
-    unported = [flag for flag, on in (
-        ("-f", args.use_ftp), ("-U", args.uri), ("-N", args.hostname),
-        ("--realtime", args.realtime),
-        ("--sink " + str(args.sink), args.sink in ("udp", "iio")),
-        ("--selfcheck", args.selfcheck), ("--profile", args.profile))
-        if on]
-    if unported:
-        print(f"ERROR: {', '.join(unported)} not ported to the PyTorch "
-              "package yet (use pluto_gps_sim_tpu for it).",
-              file=sys.stderr)
-        return 1
     if args.device == "cuda":
         import torch
         if not torch.cuda.is_available():
@@ -210,7 +204,7 @@ def main(argv: list[str] | None = None) -> int:
                   file=sys.stderr)
             return 1
 
-    if args.navfile is None:
+    if args.navfile is None and not args.use_ftp:
         print("ERROR: GPS ephemeris file is not specified.", file=sys.stderr)
         return 1
     if args.fs < 1e6:
@@ -221,6 +215,7 @@ def main(argv: list[str] | None = None) -> int:
               "no effect (the reference parses and ignores it too).",
               file=sys.stderr)
     gain_db = min(0.0, max(-80.0, args.gain_db))
+    bw_hz = min(5.0, max(1.0, args.bw_mhz)) * 1e6
 
     # defer heavy imports so --help stays fast
     from .ingest import read_rinex2, read_rinex3, read_user_motion
@@ -258,6 +253,15 @@ def main(argv: list[str] | None = None) -> int:
 
     # --- ephemerides --------------------------------------------------------
     navfile = args.navfile
+    if args.use_ftp:
+        from .ingest.fetch import fetch_rinex
+        navfile = "rinex3.gz" if args.rinex3 else "rinex2.gz"  # c:33-34
+        try:
+            url = fetch_rinex(navfile, use_rinex3=args.rinex3)
+        except OSError as e:
+            print(f"Curl error: {e}", file=sys.stderr)  # c:2471-2474
+            return 1
+        print(f"Fetched {url} -> {navfile}", file=sys.stderr)
     from .ingest.rinex import RinexError
     try:
         rin = (read_rinex3 if args.rinex3 else read_rinex2)(navfile)
@@ -315,8 +319,17 @@ def main(argv: list[str] | None = None) -> int:
         print("ERROR: --shard requires a finite -d duration",
               file=sys.stderr)
         return 1
+    if args.selfcheck and host_id != 0:
+        # the planned-PRN set is captured at scenario t0, but shard
+        # host_id > 0 fast-forwards before writing: its file starts
+        # mid-scenario where rise/set may have changed the set.
+        # Selfcheck shard 0, or the concatenated output, instead.
+        print("ERROR: --selfcheck only supports --shard 0/N",
+              file=sys.stderr)
+        return 1
     stream = IqStream(rin, g0, ieph, xyz, fs=args.fs,
-                      static_mode=static_mode, device=args.device,
+                      static_mode=static_mode, mode=args.mode,
+                      device=args.device,
                       superframes_per_dispatch=args.dispatch_superframes,
                       n_hosts=n_hosts, host_id=host_id)
     if args.resume:
@@ -327,14 +340,31 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.verbose:
         _print_channel_table(stream)
+    # channel set at stream start (rise/set may change it mid-run; the
+    # selfcheck acquires from the file's FIRST milliseconds)
+    start_prns = sorted(int(p) for p in stream.sched.state.prn if p > 0)
 
     sink_kind = args.sink
     if sink_kind is None:
-        sink_kind = "stdout" if args.out == "-" else "file"
-    sink = open_sink(sink_kind, path=args.out)
+        sink_kind = ("iio" if (args.uri or args.hostname) else
+                     "stdout" if args.out == "-" else "file")
+    sink = open_sink(sink_kind, path=args.out, fs=args.fs,
+                     realtime=args.realtime, udp_host=args.udp_host,
+                     udp_port=args.udp_port, bw_hz=bw_hz, gain_db=gain_db,
+                     uri=args.uri, hostname=args.hostname,
+                     block_samples=stream.sched.block_samples)
     if args.stats:
         from .runtime.sinks import StatsSink
         sink = StatsSink(sink)
+
+    profiler = None
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if stream.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+        profiler.__enter__()
 
     stop = {"flag": False}
 
@@ -385,6 +415,12 @@ def main(argv: list[str] | None = None) -> int:
             print(file=sys.stderr)
     finally:
         sink.close()
+        if profiler is not None:
+            profiler.__exit__(None, None, None)
+            os.makedirs(args.profile, exist_ok=True)
+            trace = os.path.join(args.profile, "trace.json")
+            profiler.export_chrome_trace(trace)
+            print(f"Profiler trace written to {trace}", file=sys.stderr)
         for s, h in old_handlers.items():
             signal.signal(s, h)
         if args.snapshot:
@@ -392,15 +428,55 @@ def main(argv: list[str] | None = None) -> int:
                 _dump_snapshot(stream.snapshot(), fp)
             print(f"Snapshot written to {args.snapshot}", file=sys.stderr)
 
+    if args.selfcheck:
+        if sink_kind != "file" or produced == 0:
+            print("selfcheck: needs a file sink and >= 1 block written",
+                  file=sys.stderr)
+            return 1
+        if not _selfcheck(args.out, args.fs, start_prns):
+            return 1
+
     if hasattr(sink, "stats"):
         stats = sink.stats()
-        # gain-trunc patch words THIS stream dropped to the per-block
-        # slot cap (each degrades one LUT entry to the kernel's f32
-        # trunc, a +-1 LSB effect — synth_cuda._N_PATCH); normally 0
-        stats["patch_dropped"] = stream.patch_dropped
+        if stream.mode == "kernel":
+            # gain-trunc patch words THIS stream dropped to the
+            # per-block slot cap (each degrades one LUT entry to the
+            # kernel's f32 trunc, a +-1 LSB effect —
+            # synth_cuda._N_PATCH); normally 0
+            stats["patch_dropped"] = stream.patch_dropped
         stats["blocks"] = produced
         print(f"sink stats: {json.dumps(stats)}", file=sys.stderr)
     return 0
+
+
+def _selfcheck(path: str, fs: float, planned: list[int]) -> bool:
+    """FFT-acquire every planned PRN from the first ms of the written
+    file (host int16, read back from disk); print one line per PRN and a
+    verdict (the JAX package's cli.py:446-474)."""
+    from .utils.acquisition import acquire
+
+    # acquire() uses 2 one-ms windows: 2 * n_per_code IQ pairs of int16
+    n_int16 = 4 * int(round(fs * 1e-3)) + 4
+    iq = np.fromfile(path, dtype=np.int16, count=n_int16)
+    # a run that planned no PRNs produced no receivable signal — that is
+    # a selfcheck FAILURE, not a vacuous pass; likewise an all-zero file
+    # (acquire() itself reports ratio 0 on silent IQ, but the energy
+    # check gives the operator a direct diagnosis)
+    if not planned:
+        print("selfcheck: FAIL (no PRNs were planned — the scenario "
+              "produced no signal)", file=sys.stderr)
+        return False
+    if not np.any(iq):
+        print("selfcheck: FAIL (output IQ is all zeros)", file=sys.stderr)
+        return False
+    ok = True
+    for prn in planned:
+        r = acquire(iq, fs, prn)
+        print(f"selfcheck: {r}", file=sys.stderr)
+        ok = ok and r.detected
+    print(f"selfcheck: {'PASS' if ok else 'FAIL'} "
+          f"({len(planned)} planned PRNs)", file=sys.stderr)
+    return ok
 
 
 def _now_utc() -> DateTime:

@@ -1,9 +1,9 @@
-"""Host packing of superframe plans for the synthesis kernel.
+"""Host packing of superframe plans, and the two tensor synthesis paths.
 
-The counterpart of the JAX package's ``ops/synth_jnp.py`` up to its
-synthesis paths: the closed-form phase ramps that replace the
-reference's sequential per-sample NCO cascade (plutogpssim.c:2690-2756)
-with embarrassingly parallel math over (block, channel, sample):
+The counterpart of the JAX package's ``ops/synth_jnp.py``: the
+closed-form phase ramps that replace the reference's sequential
+per-sample NCO cascade (plutogpssim.c:2690-2756) with embarrassingly
+parallel math over (block, channel, sample):
 
   carrier   phase(n) = frac(c0 + u*n),  u = fl(f_carr*delt)
   code      P(n)     = cp0 + v*n chips, v = fl(f_code*delt)
@@ -13,9 +13,19 @@ with embarrassingly parallel math over (block, channel, sample):
 
 ``pack_plan`` turns a scheduler plan into these per-(block, channel)
 arrays (all numpy, f64 on the host) and ``split_plan`` re-anchors blocks
-beyond the kernel's range into shorter sub-blocks.  The f64 precise and
-tiled synthesis paths of ``synth_jnp`` are not ported yet; the kernel in
-``ops/synth_cuda`` is the only synthesis path of this package.
+beyond the kernel's range into shorter sub-blocks.  Two synthesis paths
+run on those arrays as plain tensor math on any torch device, beside the
+CUDA kernel of ``ops/synth_cuda``:
+
+  * precise (``synth_superframe_precise``, synth_jnp.py:284-321): the
+    f64 closed form itself, the golden reference.  The JAX package runs
+    it on the CPU only (a TPU has no f64); a CUDA card has f64, so here
+    it also runs on the card and must equal its CPU run word for word;
+  * tiled (``synth_superframe_tiled``, synth_jnp.py:328-430): the kernel's
+    multi-level integer NCOs (Q12+Q24+Q36+f32 code, u32 + Q12-seeded
+    residual carrier) restarted at per-tile f64 anchors, in int32/f32
+    arithmetic carried in int64 and wrapped to 32 bits explicitly
+    (torch has no logical int32 shift on the CPU).
 
 Channel masking: inactive channels get zeroed parameters, so slots stay
 static-shape and contribute 0.
@@ -26,11 +36,15 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..constants import CA_SEQ_LEN, MAX_CHAN
 from ..models.tables import COS_TABLE_512, SIN_TABLE_512
 
-__all__ = ["DevicePlan", "pack_plan", "split_plan", "TILE"]
+__all__ = ["DevicePlan", "pack_plan", "split_plan", "resolve_device",
+           "synth_superframe_precise", "synth_superframe_precise_async",
+           "synth_superframe_tiled",
+           "synth_superframe_tiled_async", "TILE"]
 
 TILE = 2048  # samples per tile of the tiled path's per-tile anchors
 
@@ -71,7 +85,7 @@ class DevicePlan:
     carr_q12: np.ndarray    # [M, C, nt] int32  its sub-unit Q12 digit
 
 
-def pack_plan(plan, tile: int = TILE, tables: bool = True) -> DevicePlan:
+def pack_plan(plan, tables: bool = True) -> DevicePlan:
     """Convert a runtime.scheduler.SuperframePlan into device arrays.
 
     tables=False skips the tiled/precise-path LUTs and per-tile anchors
@@ -89,7 +103,7 @@ def pack_plan(plan, tile: int = TILE, tables: bool = True) -> DevicePlan:
     ic0 = np.where(act, plan.icode, 0).astype(np.int32)
     gain = np.where(act, plan.gain, 0.0)
 
-    nt = -(-N // tile)
+    nt = -(-N // TILE)
     if tables:
         # +-truncated gain LUTs, f64 exact (C's (int)(table*gain))
         qcos = np.trunc(COS_TABLE_512[None, None, :] * gain[..., None])
@@ -98,7 +112,7 @@ def pack_plan(plan, tile: int = TILE, tables: bool = True) -> DevicePlan:
         qsin_pm = np.concatenate([qsin, -qsin], axis=-1).astype(np.int32)
 
         # per-tile anchors (f64 on host; in-tile device math f32/int32)
-        tj = (np.arange(nt, dtype=np.float64) * tile)[None, None, :]
+        tj = (np.arange(nt, dtype=np.float64) * TILE)[None, None, :]
         P_t = cp0[..., None] + v[..., None] * tj
         pq = P_t * 4096.0
         code_q12 = np.floor(pq)
@@ -249,3 +263,192 @@ def split_plan(dp: DevicePlan, max_samples: int) -> DevicePlan:
         srem=rep(dp.srem),
         code_q12=z, code_q24=z, code_q36=z, carr_u32=z, carr_q12=z,
     )
+
+
+# ---------------------------------------------------------------------------
+# the tensor synthesis paths
+# ---------------------------------------------------------------------------
+
+# (rows x channels x samples) elements per chunk of the tensor paths: the
+# f64/int64 temporaries of one chunk stay near 32 MB on the CPU and 512 MB
+# on a card, where larger chunks keep the launch count per superframe low
+_CHUNK_ELEMS = {"cpu": 1 << 22, "cuda": 1 << 26}
+_LUT = 1024                  # entries of a +- gain LUT row (qcos_pm/qsin_pm)
+
+
+def resolve_device(device) -> torch.device:
+    """The torch.device a synthesis path runs on: cuda (a CUDA device
+    torch can see, else RuntimeError) or cpu.  Nothing is chosen
+    automatically and nothing falls back."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device 'cuda' requested but torch sees no CUDA device")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _rows_per_chunk(dev: torch.device, per_row: int) -> int:
+    return max(1, _CHUNK_ELEMS[dev.type] // max(1, per_row))
+
+
+def _mix_gather(s, itab, qcos_pm, qsin_pm):
+    """Fold the +-1 spreading sign into the LUT index and gather I/Q
+    (synth_jnp.py:271-277).  s, itab: [R, C, S]; qcos_pm/qsin_pm:
+    [R, C, 1024] integer LUTs.  Returns int64 [R, C, S] pairs.
+
+    jnp.take fills an index past the row end with INT32_MIN; the
+    precise path reaches index 1024 only when frac(c0 + u*n) rounds up
+    to exactly 1.0 under a negative spreading sign, and the fill is
+    mirrored so the two packages stay word-equal even there."""
+    idx = itab + torch.where(s < 0, 512, 0)
+    past = idx >= _LUT
+    idx = idx.clamp(max=_LUT - 1)
+    ival = torch.gather(qcos_pm, 2, idx).to(torch.int64)
+    qval = torch.gather(qsin_pm, 2, idx).to(torch.int64)
+    fill = -2**31
+    return torch.where(past, fill, ival), torch.where(past, fill, qval)
+
+
+def _spread_sign(ca2, bits, cidx, bidx):
+    """C/A chip times nav bit (+-1) per (row, channel, sample).  ca2:
+    [C, 1023], bits: [C, n_bits] int64; indexing clamps past the table
+    end, as jnp indexing does."""
+    r = cidx.shape[0]
+    chip = torch.gather(ca2.expand(r, -1, -1), 2, cidx)
+    bit = torch.gather(bits.expand(r, -1, -1), 2,
+                       bidx.clamp(0, bits.shape[-1] - 1))
+    return chip * bit
+
+
+def _iq16(i_acc, q_acc):
+    """Channel sums -> int16 [..., 2], wrapping as astype(int16) does."""
+    iq = torch.stack([i_acc, q_acc], dim=-1)
+    return (((iq + 2**15) & 0xFFFF) - 2**15).to(torch.int16)
+
+
+def _precise_rows(u, v, c0, cp0, b0, ic0, qcos_pm, qsin_pm, ca2, bits, n):
+    """R blocks, all channels, f64 ramps (synth_jnp.py:284-305).  u, v,
+    c0, cp0: [R, C] f64; b0, ic0: [R, C] int64; n: [N] f64."""
+    # c0 + u*n stays a separate multiply and add: an FMA rounds once
+    # where the reference rounds twice, and the floors below see it
+    ph = c0[..., None] + u[..., None] * n
+    ph = ph - torch.floor(ph)
+    itab = (ph * 512.0).to(torch.int64)          # ph >= 0: trunc == floor
+
+    p = cp0[..., None] + v[..., None] * n
+    chip = torch.floor(p).to(torch.int64)
+    w = torch.div(chip, CA_SEQ_LEN, rounding_mode="floor")
+    cidx = chip - w * CA_SEQ_LEN
+    bidx = b0[..., None] + torch.div(ic0[..., None] + w, 20,
+                                     rounding_mode="floor")
+    s = _spread_sign(ca2, bits, cidx, bidx)
+    ival, qval = _mix_gather(s, itab, qcos_pm, qsin_pm)
+    return _iq16(ival.sum(dim=1), qval.sum(dim=1))
+
+
+def synth_superframe_precise_async(dp: DevicePlan,
+                                   device="cpu") -> torch.Tensor:
+    """f64 golden synthesis -> int16 tensor [M, N, 2] on `device`
+    (enqueued on the current CUDA stream there).  Needs a tables=True
+    DevicePlan (the f64 gain LUTs)."""
+    dev = resolve_device(device)
+    m, c, n = dp.n_blocks, MAX_CHAN, dp.block_samples
+    if dp.qcos_pm.shape != (m, c, _LUT):
+        raise ValueError("the precise path needs pack_plan(tables=True)")
+
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    ca2, bits = put(dp.ca2, torch.int64), put(dp.bits, torch.int64)
+    nf = torch.arange(n, dtype=torch.float64, device=dev)
+    out = torch.empty((m, n, 2), dtype=torch.int16, device=dev)
+    step = _rows_per_chunk(dev, c * n)
+    for r0 in range(0, m, step):
+        sl = slice(r0, min(m, r0 + step))
+        out[sl] = _precise_rows(
+            put(dp.u[sl], torch.float64), put(dp.v[sl], torch.float64),
+            put(dp.c0[sl], torch.float64), put(dp.cp0[sl], torch.float64),
+            put(dp.b0[sl], torch.int64), put(dp.ic0[sl], torch.int64),
+            put(dp.qcos_pm[sl], torch.int64),
+            put(dp.qsin_pm[sl], torch.int64), ca2, bits, nf)
+    return out
+
+
+def synth_superframe_precise(dp: DevicePlan, device="cpu") -> np.ndarray:
+    """f64 golden synthesis -> int16 [M, N, 2] on the host, computed on
+    `device` (cuda or cpu; the two agree word for word)."""
+    return synth_superframe_precise_async(dp, device).cpu().numpy()
+
+
+def synth_superframe_tiled_async(dp: DevicePlan,
+                                 device="cpu") -> torch.Tensor:
+    """Tiled-path synthesis -> int16 tensor [M, N, 2] on `device`
+    (enqueued on the current CUDA stream there).  Needs a tables=True
+    DevicePlan (gain LUTs and per-tile anchors at TILE).
+
+    The NCOs are the synthesis kernel's multi-level scheme on per-tile
+    f64-exact anchors (synth_jnp.py:328-406): carrier = floor u32 anchor
+    + step*j + a Q12-seeded two-level (Q12 + f32) step residual whose
+    >> 12 is arithmetic; code = Q12 + Q24 + Q36 integer ramps + an f32
+    fourth level.  int32 wraparound is int64 arithmetic masked to 32
+    bits, and every other shift is logical (on the masked value)."""
+    from .synth_cuda import _s32, _trunc_i, _u32
+
+    dev = resolve_device(device)
+    m, c, n, nt = dp.n_blocks, MAX_CHAN, dp.block_samples, dp.n_tiles
+    if dp.code_q12.shape != (m, c, nt) or dp.qcos_pm.shape[-1] != _LUT:
+        raise ValueError("the tiled path needs pack_plan(tables=True) "
+                         "and an unsplit plan")
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    ji = torch.arange(TILE, dtype=torch.int64, device=dev)
+    jf = torch.arange(TILE, dtype=torch.float32, device=dev)
+    ca2, bits = put(dp.ca2).to(torch.int64), put(dp.bits).to(torch.int64)
+    out = torch.empty((m, n, 2), dtype=torch.int16, device=dev)
+    step = _rows_per_chunk(dev, c * nt * TILE)
+    for r0 in range(0, m, step):
+        sl = slice(r0, min(m, r0 + step))
+
+        def per_chan(a):          # [R, C] -> [R, C, 1, 1] on dev
+            return put(a[sl])[..., None, None]
+
+        def per_tile(a):          # [R, C, nt] -> [R, C, nt, 1] int64
+            return put(a[sl]).to(torch.int64)[..., None]
+
+        vq, r24, r36, su32, s12, b0, ic0 = (
+            per_chan(a).to(torch.int64)
+            for a in (dp.v_q12, dp.r24, dp.r36, dp.step_u32, dp.sr12,
+                      dp.b0, dp.ic0))
+        rrr, srem = per_chan(dp.rrr), per_chan(dp.srem)
+        cq12, cq24, cq36, cu32, cuq12 = (
+            per_tile(a) for a in (dp.code_q12, dp.code_q24, dp.code_q36,
+                                  dp.carr_u32, dp.carr_q12))
+        # carrier: u32 NCO, residual >> 12 arithmetic (floor for a
+        # negative sr12), then the 9 index bits by a logical shift
+        res = _s32(s12 * ji + cuq12 + _trunc_i(srem * jf)) >> 12
+        itab = _u32(cu32 + su32 * ji + res) >> 23
+        # code: Q12 + Q24 + Q36 integer ramps + f32 fourth level
+        rq36 = _u32(cq36 + r36 * ji + _trunc_i(rrr * jf))
+        rq24 = _u32(cq24 + r24 * ji + (rq36 >> 12))
+        chip = _u32(cq12 + vq * ji + (rq24 >> 12)) >> 12
+        w = torch.div(chip, CA_SEQ_LEN, rounding_mode="floor")
+        cidx = chip - w * CA_SEQ_LEN
+        bidx = b0 + torch.div(ic0 + w, 20, rounding_mode="floor")
+        r = vq.shape[0]
+        s = _spread_sign(ca2, bits, cidx.reshape(r, c, -1),
+                         bidx.reshape(r, c, -1))
+        ival, qval = _mix_gather(s, itab.reshape(r, c, -1),
+                                 put(dp.qcos_pm[sl]).to(torch.int64),
+                                 put(dp.qsin_pm[sl]).to(torch.int64))
+        out[sl] = _iq16(ival.sum(dim=1)[:, :n], qval.sum(dim=1)[:, :n])
+    return out
+
+
+def synth_superframe_tiled(dp: DevicePlan, device="cpu") -> np.ndarray:
+    """Tiled-path synthesis -> int16 [M, N, 2] on the host."""
+    return synth_superframe_tiled_async(dp, device).cpu().numpy()

@@ -1,4 +1,7 @@
-"""IQ stream driver: scheduler -> kernel synthesis -> consumer.
+"""IQ stream driver: scheduler -> synthesis -> consumer.
+
+The counterpart of the JAX package's ``runtime/stream.py`` (its mode
+dispatch, stream.py:72-89, 304-432).
 
 Replaces the reference's mutex/condvar double-buffer handoff to the SDR
 thread (plutogpssim.c:2689-2759, 2146-2158) with a pull-based generator
@@ -24,20 +27,26 @@ import torch
 from ..models.gpstime import GpsTime
 from ..ingest.rinex import RinexResult
 from ..ops import synth_cuda as sc
-from ..ops.synth_torch import DevicePlan, pack_plan, split_plan
+from ..ops.synth_torch import (pack_plan, resolve_device,
+                               split_plan, synth_superframe_precise_async,
+                               synth_superframe_tiled_async)
 from .scheduler import Scheduler
 
 __all__ = ["IqStream"]
 
+# synthesis paths: the CUDA kernel (its plain twin on the CPU, None here),
+# and the tiled and f64 precise tensor paths of ops.synth_torch
+MODES = {"kernel": None, "tiled": synth_superframe_tiled_async,
+         "precise": synth_superframe_precise_async}
+
 
 class _Group(NamedTuple):
-    """Host-packed kernel inputs for one dispatch group."""
+    """Host-packed inputs for one dispatch group: the kernel's planes,
+    C/A tables and block->superframe map (mode "kernel"), or the
+    tables=True DevicePlans the tensor paths read."""
 
-    prmi: np.ndarray          # [M*split_k, 256] int32
-    prmf: np.ndarray          # [M*split_k, 256] float32
-    ca_tabs: np.ndarray       # [n_sf, 12, 1, 128] int32
-    sf_map: np.ndarray        # [M*split_k] int32
-    block_samples: int        # samples per kernel row (sub-block)
+    payload: tuple            # (prmi, prmf, ca_tabs, sf_map) or DevicePlans
+    block_samples: int        # samples per output row (sub-block)
     n_orig: int               # samples per scenario block
 
 
@@ -51,13 +60,59 @@ class _Handle(NamedTuple):
     group: _Group
 
 
+def launch_blocks(arrays, block_samples: int, device: torch.device,
+                  cuda_stream, to_host: bool):
+    """Stage one kernel launch's host inputs and launch it; returns
+    (out, done).
+
+    On the CPU the twin runs here and done is None.  On CUDA the planes
+    go up from pinned staging copies, the kernel runs, and (to_host)
+    its packed output comes back into a fresh pinned host tensor, all
+    enqueued on cuda_stream; done is the event recorded after them, so
+    the caller returns at once and the next launch overlaps this one's
+    copy.  Shared by IqStream and parallel.MonteCarloBatch."""
+    prmi, prmf, ca_tabs, sf_map = arrays
+    args = [torch.from_numpy(np.ascontiguousarray(a))
+            for a in (prmi, prmf, ca_tabs, sf_map)]
+    if cuda_stream is None:
+        return sc.synth_blocks(*args, block_samples), None
+    sc.check_sf_map(sf_map, ca_tabs.shape[0])
+    args = [a.pin_memory().to(device, non_blocking=True) for a in args]
+    out = sc.synth_blocks(*args, block_samples)
+    return _to_host_async(out, cuda_stream, to_host)
+
+
+def _to_host_async(out: torch.Tensor, cuda_stream, to_host: bool):
+    """(out, event) after an optional D2H of out into a fresh pinned
+    host tensor, both on cuda_stream; the consumer owns the buffer."""
+    if to_host:
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        out = host
+    done = torch.cuda.Event()
+    done.record(cuda_stream)
+    return out, done
+
+
+def device_view(out: torch.Tensor, done, device: torch.device):
+    """A launch's device output ordered on the consumer's current CUDA
+    stream (done is its event, None on the CPU)."""
+    if done is not None:
+        consumer = torch.cuda.current_stream(device)
+        consumer.wait_event(done)
+        out.record_stream(consumer)
+    return out
+
+
 class IqStream:
     """Iterates int16 IQ superframes [M, N, 2] for a scenario.
 
-    Synthesis runs the CUDA kernel (ops.synth_cuda.synth_blocks) on
-    device="cuda" (or a torch.device of type cuda), and its plain twin on
-    device="cpu".  There is no automatic choice: a cuda stream on a host
-    without CUDA raises.
+    mode="kernel" (the default) synthesizes with the CUDA kernel
+    (ops.synth_cuda.synth_blocks) on device="cuda" (or a torch.device of
+    type cuda), and with its plain twin on device="cpu".  mode="tiled"
+    and mode="precise" run the tensor paths of ops.synth_torch on the
+    given device (the JAX package's modes of the same names).  There is
+    no automatic choice: a cuda stream on a host without CUDA raises.
 
     superframes_per_dispatch=K batches K consecutive superframes into
     ONE kernel launch (multi-superframe sf_map + per-superframe C/A
@@ -76,16 +131,16 @@ class IqStream:
                  xyz: np.ndarray, fs: float,
                  block_samples: int | None = None,
                  static_mode: bool = True,
+                 mode: str = "kernel",
                  device: str | torch.device = "cuda",
                  superframes_per_dispatch: int = 1,
                  n_hosts: int = 1, host_id: int = 0):
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "device 'cuda' requested but torch sees no CUDA device")
-        elif self.device.type != "cpu":
-            raise ValueError(f"unsupported device {self.device}")
+        if mode not in MODES:
+            raise ValueError(f"unknown synthesis mode {mode!r}")
+        self.mode = mode
+        # the tensor path's synth function; None = the kernel
+        self._synth = MODES[mode]
+        self.device = resolve_device(device)
         self.sched = Scheduler(rin, start, ieph, xyz, fs,
                                block_samples=block_samples,
                                static_mode=static_mode)
@@ -101,10 +156,10 @@ class IqStream:
         # (ops.synth_torch.split_plan) — sub-blocks are just shorter rows
         # of the kernel's grid, so the kernel covers ANY -s >= 1 MHz like
         # the reference (c:2326-2329); _finish reassembles [M*K, sub] ->
-        # [M, N]
+        # [M, N].  The tensor paths have no range cap and never split.
         n = self.sched.block_samples
         self.split_k = -(-n // sc.MAX_BLOCK_SAMPLES) \
-            if n > sc.MAX_BLOCK_SAMPLES else 1
+            if self._synth is None and n > sc.MAX_BLOCK_SAMPLES else 1
         # public split geometry for as_device consumers (see
         # superframes()); sub_block_samples matches what split_plan
         # derives per dispatch
@@ -155,10 +210,11 @@ class IqStream:
         scheduler state; abandoning the generator rolls the scheduler
         back to exactly after the last yielded superframe.
 
-        as_device=True yields the kernel's raw packed int32 output
-        [M*split_k, sub_block_samples] as a tensor on the stream's
+        as_device=True yields the raw output as a tensor on the stream's
         device (ordered on the consumer's current CUDA stream) instead
-        of host int16 [M, N, 2].  When the sub-block split is active
+        of host int16 [M, N, 2]: for the kernel its packed int32 words
+        [M*split_k, sub_block_samples], for the tensor paths their
+        int16 [M, N, 2].  When the kernel's sub-block split is active
         (split_k > 1) the rows are the SUB-blocks, the last of each
         scenario block extrapolating past the block end; host-fetch
         consumers get the reassembled [M, N, 2] either way.
@@ -296,10 +352,12 @@ class IqStream:
 
     def _prepare_group(self, plans: list) -> _Group:
         """ALL host-side packing for one dispatch group (runs on the
-        planner thread): plan -> DevicePlan pack, the kernel parameter
-        planes, C/A bit tables, and block->superframe map."""
-        dps = [self._pack(p) for p in plans]
+        planner thread): plan -> DevicePlan pack, and for the kernel the
+        parameter planes, C/A bit tables, and block->superframe map."""
+        dps = [pack_plan(p, tables=self._synth is not None) for p in plans]
         n_orig = dps[0].block_samples
+        if self._synth is not None:
+            return _Group(tuple(dps), n_orig, n_orig)
         if self.split_k > 1:
             dps = [split_plan(dp, sc.MAX_BLOCK_SAMPLES) for dp in dps]
         # one batched build for the whole group (bit-identical to
@@ -310,7 +368,7 @@ class IqStream:
         sf_map = np.concatenate(
             [np.full(dp.n_blocks, i, np.int32)
              for i, dp in enumerate(dps)])
-        return _Group(bp.prmi, bp.prmf, ca_tabs, sf_map,
+        return _Group((bp.prmi, bp.prmf, ca_tabs, sf_map),
                       dps[0].block_samples, n_orig)
 
     def _pack_ca_group(self, ca2s: list) -> np.ndarray:
@@ -332,42 +390,32 @@ class IqStream:
         return np.stack(packed)
 
     def _dispatch(self, group: _Group, cuda_stream, as_device: bool):
-        """Launch the kernel for a prepared group (planner thread).  On
-        CUDA everything is enqueued on the planner's stream and this
-        returns at once; on the CPU the twin runs here."""
-        args = [torch.from_numpy(a) for a in
-                (group.prmi, group.prmf, group.ca_tabs, group.sf_map)]
+        """Start synthesis of a prepared group (planner thread).  On CUDA
+        everything is enqueued on the planner's stream and this returns
+        at once; on the CPU the synthesis runs here.  The tensor paths
+        run per superframe plan and concatenate into one output."""
+        to_host = not as_device
+        if self._synth is None:
+            out, done = launch_blocks(group.payload, group.block_samples,
+                                      self.device, cuda_stream, to_host)
+            return _Handle(out, done, group)
+        parts = [self._synth(dp, self.device) for dp in group.payload]
+        out = parts[0] if len(parts) == 1 else torch.cat(parts)
         if cuda_stream is None:
-            out = sc.synth_blocks(*args, group.block_samples)
             return _Handle(out, None, group)
-        # H2D from pinned staging copies, then the kernel
-        sc.check_sf_map(group.sf_map, group.ca_tabs.shape[0])
-        args = [a.pin_memory().to(self.device, non_blocking=True)
-                for a in args]
-        out = sc.synth_blocks(*args, group.block_samples)
-        if not as_device:
-            # D2H into a fresh pinned buffer, so delivery overlaps the
-            # next group's synthesis; the consumer owns the buffer
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
-            out = host
-        done = torch.cuda.Event()
-        done.record(cuda_stream)
-        return _Handle(out, done, group)
+        return _Handle(*_to_host_async(out, cuda_stream, to_host), group)
 
     def _device_view(self, handle: _Handle) -> torch.Tensor:
-        """The raw packed kernel output behind a handle, ordered on the
-        consumer's current CUDA stream — what as_device=True yields."""
-        if handle.done is not None:
-            consumer = torch.cuda.current_stream(self.device)
-            consumer.wait_event(handle.done)
-            handle.out.record_stream(consumer)
-        return handle.out
+        """The raw output behind a handle, ordered on the consumer's
+        current CUDA stream — what as_device=True yields."""
+        return device_view(handle.out, handle.done, self.device)
 
     def _finish(self, handle: _Handle) -> np.ndarray:
         if handle.done is not None:
             handle.done.synchronize()
         g = handle.group
+        if self._synth is not None:
+            return handle.out.numpy()
         iq = sc.unpack_iq(handle.out.numpy(), g.block_samples)
         if self.split_k > 1:
             # reassemble sub-blocks into scenario blocks; the last
@@ -377,9 +425,6 @@ class IqStream:
             iq = iq.reshape(iq.shape[0] // k, k * iq.shape[1], 2)
             iq = iq[:, :g.n_orig]
         return iq
-
-    def _pack(self, plan) -> DevicePlan:
-        return pack_plan(plan, tables=False)
 
     # -- snapshot / resume ---------------------------------------------------
 

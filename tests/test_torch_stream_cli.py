@@ -10,7 +10,9 @@ writes the same bytes as the JAX CLI without ever importing jax.
 from __future__ import annotations
 
 import io
+import json
 import os
+import socket
 import subprocess
 import sys
 
@@ -31,6 +33,8 @@ from pluto_gps_sim_tpu_torch.ingest import read_rinex2 as t_read
 from pluto_gps_sim_tpu_torch.ops import synth_cuda as sc
 from pluto_gps_sim_tpu_torch.runtime import scenario as t_scen
 from pluto_gps_sim_tpu_torch.runtime.stream import IqStream as TStream
+
+from test_torch_io import fake_ftp, fake_iio  # noqa: F401  (fixtures)
 
 TOKYO = np.array([35.681298 / R2D, 139.766247 / R2D, 10.0])
 LLH = "35.681298,139.766247,10.0"
@@ -210,27 +214,92 @@ def _streams_cuda(fixture_paths):
                    np.asarray(llh2xyz(TOKYO)), fs=FS, device="cuda")
 
 
+def _ported_case(name, tmp_path, monkeypatch, request):
+    """Per-option setup: extra CLI args and a check of the option's
+    effect (fakes stand in for the FTP server and the libiio binding)."""
+    if name == "-f":
+        from pluto_gps_sim_tpu_torch.ingest import fetch as fetch_mod
+        srv = request.getfixturevalue("fake_ftp")
+        monkeypatch.setattr(fetch_mod, "RINEX_FTP_URL",
+                            f"ftp://127.0.0.1:{srv.port}/IGS/")
+        monkeypatch.chdir(tmp_path)
+        return [], lambda err: (tmp_path / "rinex2.gz").exists() \
+            and "Fetched ftp://127.0.0.1" in err
+    if name == "--realtime":
+        return [], lambda err: '"producer_waits"' in err \
+            and "WARNING" not in err
+    if name == "--sink udp":
+        rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        rx.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 8 << 20)
+        rx.bind(("127.0.0.1", 0))
+        rx.settimeout(0.5)
+        request.addfinalizer(rx.close)
+
+        def received(err):
+            got = 0
+            try:
+                while True:
+                    got += len(rx.recvfrom(65536)[0])
+            except socket.timeout:
+                pass
+            return got >= 260_000 * 4 // 2
+        return ["--udp-port", str(rx.getsockname()[1])], received
+    if name in ("--sink iio", "-U", "-N"):
+        log = request.getfixturevalue("fake_iio")
+        want = {"--sink iio": "default", "-U": "ip:pluto.local",
+                "-N": "net:pluto"}[name]
+        return [], lambda err: ("context", want) in log \
+            and ("push", 260_000 * 4) in log
+    if name == "--selfcheck":
+        return [], lambda err: "selfcheck: PASS" in err
+    assert name == "--profile"
+    monkeypatch.chdir(tmp_path)
+
+    def traced(err):
+        with open(tmp_path / "prof" / "trace.json") as fp:
+            return "traceEvents" in json.load(fp)
+    return [], traced
+
+
 @pytest.mark.parametrize("flags", [["-f"], ["--realtime"],
                                    ["--sink", "udp"], ["--sink", "iio"],
                                    ["-U", "ip:pluto.local"], ["-N", "pluto"],
                                    ["--selfcheck"], ["--profile", "prof"]])
-def test_cli_unported_options_exit_1(tmp_path, fixture_paths, capsys,
-                                     flags):
+def test_cli_ported_options_run(tmp_path, fixture_paths, capsys,
+                                monkeypatch, request, flags):
+    """Each option the JAX CLI has runs in the port (rc 0) and has its
+    effect: FTP fetch, native pacing, UDP datagrams, the IIO sink (by
+    --sink, -U or -N), the selfcheck verdict, a Chrome trace."""
+    name = flags[0] if flags[0] != "--sink" else " ".join(flags)
+    extra, check = _ported_case(name, tmp_path, monkeypatch, request)
     rc = t_cli.main(["-e", fixture_paths["rinex2"], "-d", "0.1",
                      "--device", "cpu", "-o", str(tmp_path / "x.bin")]
-                    + flags)
-    assert rc == 1
-    assert "not ported" in capsys.readouterr().err
+                    + flags + extra)
+    err = capsys.readouterr().err
+    assert rc == 0, err
+    assert "not ported" not in err
+    assert check(err), err
 
 
 def test_cli_parser_keeps_reference_surface():
     """The JAX parser's option surface and defaults, with --mode
-    replaced by --device (default cuda)."""
+    auto|pallas|tiled|precise replaced by --mode kernel|tiled|precise
+    (default kernel) beside --device (default cuda)."""
     argv = ["-e", "nav.23n", "-l", "35,139,10", "-A", "-30", "-B", "2.5"]
     a, b = j_cli.parse_cli(argv), t_cli.parse_cli(argv)
     va, vb = vars(a), vars(b)
-    assert va.pop("mode") == "auto" and vb.pop("device") == "cuda"
+    assert va.pop("mode") == "auto"
+    assert vb.pop("mode") == "kernel" and vb.pop("device") == "cuda"
     assert va == vb
     assert vb["gain_db"] == -30.0
+    for mode in ("tiled", "precise"):
+        assert t_cli.parse_cli(argv + ["--mode", mode]).mode == mode
     with pytest.raises(SystemExit):
         t_cli.parse_cli(argv + ["--device", "tpu"])
+
+
+@pytest.mark.parametrize("mode", ["auto", "pallas"])
+def test_cli_parser_rejects_jax_only_modes(mode):
+    """The port has no auto mode and no Pallas kernel."""
+    with pytest.raises(SystemExit):
+        t_cli.parse_cli(["-e", "nav.23n", "--mode", mode])
