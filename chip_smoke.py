@@ -35,13 +35,25 @@ exits non-zero):
      300 blocks at 2.6 MHz (76,800 rows), chunks of 3,000 rows consumed
      on the card by an int64 sum; the first chunk equals the twin run on
      the card; 0 patch words dropped;
-  8. receiver: the CLI writes 40 s on the card with --selfcheck, and the
+  8. mesh: 4 gloo ranks (one process each) on this card run the
+     parallel/{mesh,shard} path (mesh_rank): a 12-channel nudge=False
+     plan with patch words in two channel shards, 8 x 260,000, over 1x4
+     and 2x2 meshes; IqStream(mode="kernel", mesh=2x2) over one 30 s
+     superframe (300 blocks, 2.6 MHz, CRC32 printed); a 10 MHz plan
+     split into sub-blocks (2 blocks); MonteCarloBatch B=4 x 30 blocks —
+     each equal word for word to the single-device kernel run on the
+     card — and the packed=False kernel equals its twin at each rank's
+     shard; then the port's run_multiprocess_dryrun and
+     dryrun_multichip (4 gloo ranks on the card).  Only with >= 4
+     cards: the same over nccl (one rank per card), and make_mesh must
+     refuse two nccl ranks on one card;
+  9. receiver: the CLI writes 40 s on the card with --selfcheck, and the
      software receiver's fix from that file lands within 8 m with every
      planned PRN and a static velocity under 0.15 m/s;
-  9. io: -d 3 --realtime to a file is paced by the native ring writer
+ 10. io: -d 3 --realtime to a file is paced by the native ring writer
      (>= 2.7 s) and writes the bytes of an unpaced run; --profile writes
      a Chrome trace that holds the kernel;
- 10. a JSON line per the kernels, the card line, and the result line.
+ 11. a JSON line per the kernels, the card line, and the result line.
 
 Uses only this package (never jax) and the tracked RINEX fixture
 tests/data/brdc_test.23n.  Extra logs go to chiprun_out/chip_smoke/.
@@ -547,6 +559,225 @@ def phase_mc_full(scen) -> tuple[int, int, dict]:
                            "aggregate_gsps": gsps}
 
 
+MESH_RANKS = 4
+MESH_SYN_BLOCKS = 8          # the patch-carrying synthetic plan
+MESH_MC_B, MESH_MC_BLOCKS = 4, 30
+BOUNDARY_GAIN = 0.9086419713826426   # 405*g straddles an integer in f32
+
+
+def mesh_rank(rank: int, world: int, out_dir: str, device: str,
+              n_blocks: str) -> None:
+    """One rank of the mesh phase, in a process spawned by
+    parallel.multiproc_dryrun.spawn_world (the process group is up).
+
+    Over 1x4 and 2x2 meshes on `device` (rank_device names it): a
+    12-channel nudge=False plan carrying patch words in two channel
+    shards; IqStream(mode="kernel", mesh=2x2) over n_blocks at 2.6 MHz;
+    a 10 MHz plan split into sub-blocks (2 blocks); a Monte-Carlo batch.
+    Each equals the single-device run on the same device word for word;
+    the kernel's packed=False output at this rank's shard of the stream
+    equals its plain twin.  Launches of the sharded runs are counted
+    apart from the references'.  Writes rank<r>.json into out_dir."""
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from pluto_gps_sim_tpu_torch.ops import synth_cuda as sc
+    from pluto_gps_sim_tpu_torch.ops.synth_torch import pack_plan
+    from pluto_gps_sim_tpu_torch.parallel import MonteCarloBatch, make_mesh
+    from pluto_gps_sim_tpu_torch.parallel.multiproc_dryrun import (
+        rank_device, single_device)
+    from pluto_gps_sim_tpu_torch.parallel.shard import (
+        launch_on_mesh, local_inputs, pad_time_shards, shard_channel_params)
+    from pluto_gps_sim_tpu_torch.runtime.scheduler import Scheduler
+    from pluto_gps_sim_tpu_torch.runtime.stream import IqStream
+
+    n_blocks = int(n_blocks)
+    dev = rank_device(device, rank)
+    rin, g0, ieph, xyz = _scenario()
+    meshes = {"1x4": make_mesh(1, 4, device=dev),
+              "2x2": make_mesh(2, 2, device=dev)}
+    mesh = meshes["2x2"]
+    res: dict = {"rank": rank, "coord": list(mesh.coord),
+                 "device": str(mesh.device), "backend": mesh.backend}
+    launches = 0
+
+    def sharded(fn):
+        """fn's result, its kernel launches counted as the mesh path's."""
+        nonlocal launches
+        sc.reset_launch_count()
+        out = fn()
+        launches += sc.launch_count()
+        return out
+
+    def same(name, got, want):
+        got, want = np.asarray(got), np.asarray(want)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            bad = int((got != want).sum()) if got.shape == want.shape \
+                else "shape"
+            raise AssertionError(f"rank {rank} {name}: sharded differs from "
+                                 f"the single-device run ({bad})")
+
+    # a. the patch-carrying 12-channel plan over 1x4 and 2x2
+    gain = np.full((MESH_SYN_BLOCKS, 12), 0.5)
+    gain[:, [1, 7]] = BOUNDARY_GAIN
+    dp = pack_plan(_synthetic_plan(MESH_SYN_BLOCKS, TIMED_SAMPLES, FS,
+                                   seed=7, gain=gain), tables=False)
+    bp, ca, sf_map, n = _inputs([dp], nudge=False)
+    words = np.stack([bp.prmf[:, sc.patch_word_lane(k)]
+                      for k in range(sc._N_PATCH)]).astype(np.int64)
+    chans = sorted({int(c) for c in ((words[words != 0] >> 2) & 15)})
+    assert chans == [1, 7], chans
+    arrays = (bp.prmi, bp.prmf, ca, sf_map)
+    want = single_device(dev, arrays, n)
+    for name, m in meshes.items():
+        same(f"synthetic {name}", sharded(
+            lambda: launch_on_mesh(m, arrays, n).cpu().numpy()), want)
+    res["patch_words_per_block"] = int((words != 0).sum(axis=0).max())
+
+    # b. one full superframe through IqStream(mesh=2x2)
+    kw = dict(fs=FS, device=dev)
+    stats0 = dict(mesh.stats)
+    t0 = time.perf_counter()
+    got = sharded(lambda: IqStream(rin, g0, ieph, xyz, mesh=mesh,
+                                   **kw).generate(n_blocks))
+    res["stream_wall_s"] = time.perf_counter() - t0
+    for k in ("reduce_s", "pack_s", "gather_s"):
+        res[f"stream_{k}"] = mesh.stats[k] - stats0[k]
+    t0 = time.perf_counter()
+    want = IqStream(rin, g0, ieph, xyz, **kw).generate(n_blocks)
+    res["single_wall_s"] = time.perf_counter() - t0
+    same("stream", got, want)
+    res["stream_crc32"] = f"{zlib.crc32(got.tobytes()):08x}"
+    res["single_crc32"] = f"{zlib.crc32(want.tobytes()):08x}"
+    del got, want
+
+    # c. a 10 MHz plan split into sub-blocks, through the mesh
+    kw10 = dict(fs=10e6, device=dev)
+    s10 = IqStream(rin, g0, ieph, xyz, mesh=mesh, **kw10)
+    assert s10.split_k == 2, s10.split_k
+    same("10 MHz split", sharded(lambda: s10.generate(2)),
+         IqStream(rin, g0, ieph, xyz, **kw10).generate(2))
+
+    # d. the Monte-Carlo batch through the mesh
+    xyz_b = _scattered_receivers(MESH_MC_B)
+    mc_blocks = min(MESH_MC_BLOCKS, n_blocks)
+    same("montecarlo", sharded(lambda: MonteCarloBatch(
+        rin, g0, ieph, xyz_b, fs=FS).generate(mc_blocks, dev, mesh=mesh)),
+        MonteCarloBatch(rin, g0, ieph, xyz_b, fs=FS).generate(mc_blocks, dev))
+    res["launches"] = launches
+
+    # e. the kernel against its twin at this rank's shard of the stream
+    dps = [pack_plan(Scheduler(rin, g0, ieph, xyz, fs=FS).plan(n_blocks),
+                     tables=False)]
+    bp, ca, sf_map, n = _inputs(dps)
+    prmi, prmf, sf_map = pad_time_shards(bp.prmi, bp.prmf, sf_map, 2)
+    args = local_inputs(mesh, prmi, shard_channel_params(prmf, 2), ca,
+                         sf_map)
+    kern = sc.synth_blocks(*args, n, packed=False)
+    plain = sc.synth_blocks_plain(*args, n, packed=False)
+    err = max(int((k.to(torch.int64) - p).abs().max())
+              for k, p in zip(kern, plain))
+    if err:
+        raise AssertionError(f"rank {rank}: packed=False kernel differs "
+                             f"from the twin on its shard (max err {err})")
+    res["shard_rows"] = int(args[0].shape[0])
+    res["kernel_vs_twin_max_abs_err"] = err
+    assert "jax" not in sys.modules, "the port imported jax"
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+    print(f"[mesh] rank {rank} at {tuple(mesh.coord)} on {mesh.device}: "
+          f"{json.dumps(res)}", flush=True)
+
+
+def mesh_refuse(rank: int, world: int) -> None:
+    """Two nccl ranks on card 0: make_mesh must refuse them (NCCL
+    refuses duplicate GPUs); exits 0 only after the refusal."""
+    from pluto_gps_sim_tpu_torch.parallel import make_mesh
+    try:
+        make_mesh(device="cuda:0")
+    except ValueError as e:
+        print(f"[mesh] rank {rank} refused: {e}", flush=True)
+        raise SystemExit(0)
+    raise AssertionError("make_mesh accepted two nccl ranks on one card")
+
+
+def phase_mesh() -> tuple[int, dict]:
+    """The mesh path: 4 gloo ranks on this card (each rank a process),
+    then the port's two dryruns; an nccl world only with >= 4 cards."""
+    import torch
+
+    from pluto_gps_sim_tpu_torch.parallel import multiproc_dryrun as mpd
+    t0 = time.perf_counter()
+    out = OUT_DIR / "mesh"
+    out.mkdir(parents=True, exist_ok=True)
+    logs = mpd.spawn_world(MESH_RANKS, "gloo", "chip_smoke:mesh_rank",
+                           (str(out), "cuda", TIMED_BLOCKS), timeout=400.0)
+    (out / "gloo_ranks.log").write_text("\n".join(logs))
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(MESH_RANKS)]
+    for r in ranks:
+        assert r["launches"] > 0, f"rank {r['rank']} never launched"
+        assert r["stream_crc32"] == r["single_crc32"] == \
+            ranks[0]["stream_crc32"], r
+    launches = sum(r["launches"] for r in ranks)
+    wall = time.perf_counter() - t0
+    reduce_s = max(r["stream_reduce_s"] for r in ranks)
+    _phase("mesh gloo 4 ranks on one card", t0,
+           f"1x4 and 2x2 patch plan, {TIMED_BLOCKS}-block stream (crc32 "
+           f"{ranks[0]['stream_crc32']}), 10 MHz split, Monte-Carlo B="
+           f"{MESH_MC_B} x {MESH_MC_BLOCKS} all == single-device; "
+           f"launches per rank {[r['launches'] for r in ranks]}; "
+           f"stream {max(r['stream_wall_s'] for r in ranks):.3f} s sharded"
+           f" vs {max(r['single_wall_s'] for r in ranks):.3f} s single; "
+           f"all-reduce {reduce_s:.3f} s, pack + copy to the host "
+           f"{max(r['stream_pack_s'] for r in ranks):.3f} s, gather "
+           f"{max(r['stream_gather_s'] for r in ranks):.3f} s per "
+           f"superframe")
+
+    t1 = time.perf_counter()
+    dry = mpd.run_multiprocess_dryrun(MESH_RANKS, "gloo", "cuda",
+                                      timeout=300.0)
+    multi = mpd.dryrun_multichip(MESH_RANKS, "gloo", "cuda", timeout=300.0)
+    (out / "dryruns.log").write_text(dry + "\n" + multi)
+    _phase("mesh dryruns gloo on one card", t1,
+           f"{dry.count(mpd.OK_TAG)} {mpd.OK_TAG} tags, "
+           f"{multi.count(mpd.MULTICHIP_TAG)} {mpd.MULTICHIP_TAG} tags")
+
+    n_cards = torch.cuda.device_count()
+    if n_cards >= MESH_RANKS:
+        t2 = time.perf_counter()
+        nout = out / "nccl"
+        nout.mkdir(exist_ok=True)
+        mpd.spawn_world(MESH_RANKS, "nccl", "chip_smoke:mesh_rank",
+                        (str(nout), "cuda:rank", TIMED_BLOCKS),
+                        timeout=400.0)
+        nlaunch = [json.loads((nout / f"rank{r}.json").read_text())
+                   ["launches"] for r in range(MESH_RANKS)]
+        mpd.run_multiprocess_dryrun(MESH_RANKS, "nccl", "cuda:rank",
+                                    timeout=300.0)
+        mpd.dryrun_multichip(MESH_RANKS, "nccl", "cuda:rank", timeout=300.0)
+        refused = mpd.spawn_world(2, "nccl", "chip_smoke:mesh_refuse",
+                                  timeout=120.0)
+        assert all("refused" in o for o in refused), refused
+        _phase("mesh nccl", t2, f"{MESH_RANKS} ranks, one card each, all "
+               f"== single-device; launches per rank {nlaunch}; both "
+               f"dryruns pass; two ranks on one card refused")
+    else:
+        print(f"[phase] mesh nccl: not run, {n_cards} card(s)", flush=True)
+    return launches, {
+        "wall_s": wall, "launches_per_rank": [r["launches"] for r in ranks],
+        "stream_wall_s": [r["stream_wall_s"] for r in ranks],
+        "single_wall_s": [r["single_wall_s"] for r in ranks],
+        "allreduce_s_per_superframe": [r["stream_reduce_s"] for r in ranks],
+        "pack_s_per_superframe": [r["stream_pack_s"] for r in ranks],
+        "gather_s_per_superframe": [r["stream_gather_s"] for r in ranks],
+        "stream_crc32": ranks[0]["stream_crc32"],
+        "kernel_vs_twin_max_abs_err": max(
+            r["kernel_vs_twin_max_abs_err"] for r in ranks),
+        "dryruns_s": time.perf_counter() - t1, "nccl_cards": n_cards}
+
+
 def phase_receiver(scen) -> dict:
     """A 40 s file written on the card, fixed by the software receiver."""
     import numpy as np
@@ -696,6 +927,7 @@ def main() -> int:
     golden = phase_golden(scen)
     phase_mc_held(scen)
     mc_launches, mc_err, mc = phase_mc_full(scen)
+    mesh_launches, mesh = phase_mesh()
     receiver = phase_receiver(scen)
     realtime_wall = phase_io()
     assert "jax" not in sys.modules, "the port imported jax"
@@ -704,15 +936,17 @@ def main() -> int:
         "name": "synth_blocks", "route": "cuda",
         "source": "pluto_gps_sim_tpu_torch/ops/csrc/synth_blocks.cu",
         "replaces": "pluto_gps_sim_tpu/ops/synth_pallas.py:194",
-        "paths": ["stream", "montecarlo"],
-        "path_launches": {"stream": launches, "montecarlo": mc_launches},
-        "launches": launches + mc_launches,
-        "max_abs_err": max(max_err, mc_err),
+        "paths": ["stream", "montecarlo", "mesh"],
+        "path_launches": {"stream": launches, "montecarlo": mc_launches,
+                          "mesh": mesh_launches},
+        "launches": launches + mc_launches + mesh_launches,
+        "max_abs_err": max(max_err, mc_err,
+                           mesh["kernel_vs_twin_max_abs_err"]),
         "ms": ms, "plain_ms": plain_ms}]}
     (OUT_DIR / "result.json").write_text(json.dumps(
         {**kernels, "card": card, "realtime_factor": rtf,
-         "golden": golden, "montecarlo": mc, "receiver": receiver,
-         "realtime_wall_s": realtime_wall,
+         "golden": golden, "montecarlo": mc, "mesh": mesh,
+         "receiver": receiver, "realtime_wall_s": realtime_wall,
          "wall_s": time.perf_counter() - t_all}, indent=1))
     _phase("all", t_all)
     print(json.dumps(kernels))

@@ -1,7 +1,7 @@
 """Batched Monte-Carlo trajectory synthesis.
 
 The counterpart of the JAX package's ``parallel/montecarlo.py:55-327``,
-on one device (its mesh sharding is not part of this module).
+on one device or sharded over a parallel.mesh.Mesh of ranks (mesh=).
 
 Nothing like this exists in the reference — it simulates exactly one
 receiver (plutogpssim.c:2203).  On a GPU the marginal cost of more
@@ -239,7 +239,7 @@ class MonteCarloBatch:
 
     def superframes(self, n_blocks: int, device,
                     chunk_blocks: int | None = None,
-                    as_device: bool = False):
+                    as_device: bool = False, mesh=None):
         """Stream the batch as (block_offset, iq) chunks — host RSS stays
         bounded by ONE chunk, so B=256 x 300 blocks (80 GB of IQ at
         2.6 MHz) never materializes anywhere.
@@ -259,8 +259,17 @@ class MonteCarloBatch:
         output fits device memory at large B (4*N bytes per row); the
         pipeline keeps up to TWO chunks' outputs live on the device at
         once, so size chunk_blocks so two chunks fit.  Default: the
-        whole batch in one launch."""
-        dev = resolve_device(device)
+        whole batch in one launch.
+
+        mesh (a parallel.mesh.Mesh) shards the batch over the mesh's
+        ranks (parallel.shard), as the JAX package's mesh= does; device
+        must name mesh.device.  Mesh runs launch whole (chunk_blocks
+        does not apply), and every rank yields the whole batch."""
+        if mesh is not None:
+            from .mesh import check_mesh_device
+            dev = check_mesh_device(mesh, device)
+        else:
+            dev = resolve_device(device)
         prmi, prmf, ca2, sf_map = self.plan_blocks(n_blocks)
         total = self.B * n_blocks
         n = self.block_samples
@@ -269,10 +278,11 @@ class MonteCarloBatch:
         def launch(lo, hi):
             arrays = (prmi[lo:hi], prmf[lo:hi], ca2, sf_map[lo:hi])
             if cuda_stream is None:
-                return launch_blocks(arrays, n, dev, None, not as_device)
+                return launch_blocks(arrays, n, dev, None, not as_device,
+                                     mesh)
             with torch.cuda.device(dev), torch.cuda.stream(cuda_stream):
                 return launch_blocks(arrays, n, dev, cuda_stream,
-                                     not as_device)
+                                     not as_device, mesh)
 
         def finish(off, out, done):
             if as_device:
@@ -281,7 +291,8 @@ class MonteCarloBatch:
                 done.synchronize()
             return off, sc.unpack_iq(out.numpy(), n)
 
-        step = total if chunk_blocks is None else max(1, chunk_blocks)
+        step = total if chunk_blocks is None or mesh is not None \
+            else max(1, chunk_blocks)
         pending = None
         for off in range(0, total, step):
             out, done = launch(off, min(off + step, total))
@@ -292,9 +303,9 @@ class MonteCarloBatch:
             yield finish(*pending)
 
     def generate(self, n_blocks: int, device,
-                 chunk_blocks: int | None = None) -> np.ndarray:
+                 chunk_blocks: int | None = None, mesh=None) -> np.ndarray:
         """Synthesize [B, n_blocks, N, 2] int16 IQ over B*n_blocks blocks
-        on device ("cuda" or "cpu").
+        on device ("cuda" or "cpu"), sharded over `mesh` when given.
 
         Materializes the WHOLE batch on host — at large B use
         superframes() and consume per-chunk instead (B=256 x 300 blocks
@@ -304,7 +315,8 @@ class MonteCarloBatch:
         out = np.empty((self.B * n_blocks, n, 2), dtype=np.int16)
         done = 0
         for off, iq in self.superframes(n_blocks, device,
-                                        chunk_blocks=chunk_blocks):
+                                        chunk_blocks=chunk_blocks,
+                                        mesh=mesh):
             out[off:off + iq.shape[0]] = iq
             done += iq.shape[0]
         assert done == self.B * n_blocks

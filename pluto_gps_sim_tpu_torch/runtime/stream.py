@@ -61,7 +61,7 @@ class _Handle(NamedTuple):
 
 
 def launch_blocks(arrays, block_samples: int, device: torch.device,
-                  cuda_stream, to_host: bool):
+                  cuda_stream, to_host: bool, mesh=None):
     """Stage one kernel launch's host inputs and launch it; returns
     (out, done).
 
@@ -70,7 +70,18 @@ def launch_blocks(arrays, block_samples: int, device: torch.device,
     its packed output comes back into a fresh pinned host tensor, all
     enqueued on cuda_stream; done is the event recorded after them, so
     the caller returns at once and the next launch overlaps this one's
-    copy.  Shared by IqStream and parallel.MonteCarloBatch."""
+    copy.  With a mesh (parallel.mesh) the launch runs sharded through
+    parallel.shard.launch_on_mesh, whose collectives block the calling
+    thread; every rank must make the same calls in the same order.
+    Shared by IqStream and parallel.MonteCarloBatch."""
+    if mesh is not None:
+        from ..parallel.shard import launch_on_mesh
+        out = launch_on_mesh(mesh, arrays, block_samples)
+        if cuda_stream is None or (to_host and out.device.type == "cpu"):
+            return out, None
+        # a gloo mesh on a card gathered on the host: as_device wants
+        # the words back on the card
+        return _to_host_async(out.to(device), cuda_stream, to_host)
     prmi, prmf, ca_tabs, sf_map = arrays
     args = [torch.from_numpy(np.ascontiguousarray(a))
             for a in (prmi, prmf, ca_tabs, sf_map)]
@@ -125,7 +136,15 @@ class IqStream:
     n_hosts/host_id partition a finite stream across hosts: host h
     fast-forwards the deterministic control plane to its contiguous
     share and synthesizes only blocks [h*M/N, (h+1)*M/N); the N hosts'
-    outputs concatenate byte-identically to an unsharded run."""
+    outputs concatenate byte-identically to an unsharded run.
+
+    mesh (a parallel.mesh.Mesh, mode="kernel" only) shards every
+    dispatch group over the mesh's ranks (parallel.shard): every rank
+    constructs the same stream on its own mesh.device (device must name
+    it) and iterates it in step with the others, and every rank yields
+    the single-device stream's output.  The collectives are issued by
+    the planner thread only, one group after another, so every rank
+    issues the same ones in the same order."""
 
     def __init__(self, rin: RinexResult, start: GpsTime, ieph: int,
                  xyz: np.ndarray, fs: float,
@@ -134,13 +153,21 @@ class IqStream:
                  mode: str = "kernel",
                  device: str | torch.device = "cuda",
                  superframes_per_dispatch: int = 1,
-                 n_hosts: int = 1, host_id: int = 0):
+                 n_hosts: int = 1, host_id: int = 0,
+                 mesh=None):
         if mode not in MODES:
             raise ValueError(f"unknown synthesis mode {mode!r}")
+        if mesh is not None and mode != "kernel":
+            raise ValueError("mesh sharding requires mode='kernel'")
         self.mode = mode
         # the tensor path's synth function; None = the kernel
         self._synth = MODES[mode]
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            from ..parallel.mesh import check_mesh_device
+            self.device = check_mesh_device(mesh, device)
+        else:
+            self.device = resolve_device(device)
         self.sched = Scheduler(rin, start, ieph, xyz, fs,
                                block_samples=block_samples,
                                static_mode=static_mode)
@@ -243,6 +270,20 @@ class IqStream:
         # plan order — [0] is the rollback point if the generator is
         # abandoned (covers queued, dispatching, and mid-plan groups)
         unyielded: collections.deque = collections.deque()
+        # With a mesh every dispatch is a collective, so an abandoned
+        # generator must stop every rank's planner after the SAME group,
+        # or one rank waits forever in a collective the others never
+        # issue.  A planner runs at most two groups past the last group
+        # the consumer took (one queued, one being put), so on
+        # abandonment each planner runs on to exactly that count — a
+        # number every rank agrees on — and the rollback below undoes
+        # the extra groups as it does without a mesh.
+        taken = 0
+        stop_at = [0]
+
+        def _stopped(dispatched: int) -> bool:
+            return stop.is_set() and (self.mesh is None
+                                      or dispatched >= stop_at[0])
 
         def _put(item) -> None:
             while not stop.is_set():
@@ -255,7 +296,8 @@ class IqStream:
         def _plan_loop(cuda_stream) -> None:
             rem = remaining
             ramp = self.dispatch_ramp(self.superframes_per_dispatch)
-            while not stop.is_set():
+            dispatched = 0
+            while not _stopped(dispatched):
                 if rem is not None and rem <= 0:
                     break
                 with lock:
@@ -278,6 +320,7 @@ class IqStream:
                 group = self._prepare_group(plans)     # host-only work
                 after = self._state_snapshot()
                 handle = self._dispatch(group, cuda_stream, as_device)
+                dispatched += 1
                 _put(("ok", handle, after))
 
         def _planner() -> None:
@@ -309,6 +352,7 @@ class IqStream:
                     return
                 if item[0] == "err":
                     raise item[1]
+                taken += 1
                 _, handle, snap_after = item
                 out = (self._device_view(handle) if as_device
                        else self._finish(handle))
@@ -317,6 +361,7 @@ class IqStream:
                 self._yield_snap = snap_after
                 yield out      # abandonment suspends HERE
         finally:
+            stop_at[0] = taken + 2
             stop.set()
             # unblock a planner stuck in put(), then wait it out before
             # touching scheduler state
@@ -397,7 +442,8 @@ class IqStream:
         to_host = not as_device
         if self._synth is None:
             out, done = launch_blocks(group.payload, group.block_samples,
-                                      self.device, cuda_stream, to_host)
+                                      self.device, cuda_stream, to_host,
+                                      self.mesh)
             return _Handle(out, done, group)
         parts = [self._synth(dp, self.device) for dp in group.payload]
         out = parts[0] if len(parts) == 1 else torch.cat(parts)
