@@ -6,16 +6,19 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (each prints one line with its wall time; any failure raises and
 exits non-zero):
   1. the card's name and power limit; build the CUDA synthesis kernel
-     from ops/csrc/ with nvcc (sm_90a) and time the build;
+     from ops/csrc/ with nvcc (sm_90a) and time the build; dump its SASS
+     (cuobjdump) and print the K1 channel loop's instruction counts;
   2. the kernel against its plain PyTorch twin (synth_blocks_plain, on
-     the CPU), word for word: the fixture scenario at 2.6 MHz, 5 MHz
-     (n reaches 499,999), a 10 MHz plan split into 2 sub-blocks, a
-     patch-carrying nudge=False plan, and the packed=False epilogue;
-     then kernel and twin both on the card at every dispatch group of
-     phase 3's main path (1, 2, 4 and 3 superframes, multi-superframe
-     sf_map), word for word; then both timed on the card at 300 blocks
-     x 260,000 samples x 12 channels (CUDA events), with their words
-     compared again;
+     the CPU), word for word: the fixture scenario at 2.6 MHz, 1 MHz
+     (the most chips per sample), 5 MHz (n reaches 499,999), a 10 MHz
+     plan split into 2 sub-blocks, a patch-carrying nudge=False plan,
+     and the packed=False epilogue; then kernel and twin both on the
+     card at every dispatch group of phase 3's main path (1, 2, 4 and 3
+     superframes, multi-superframe sf_map), word for word; then both
+     timed on the card at 300 blocks x 260,000 samples x 12 channels
+     (CUDA events), with their words compared again, beside the least
+     time the card could take for that work (kernel_bound) and the SM
+     clock under load;
   3. the CLI's main path on cuda: -s 2600000 -d 300
      --dispatch-superframes 8 --sink null --stats (3,000 blocks);
      asserts the kernel launched, no patch word was dropped and every
@@ -61,10 +64,12 @@ tests/data/brdc_test.23n.  Extra logs go to chiprun_out/chip_smoke/.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -75,10 +80,40 @@ ROOT = Path(__file__).resolve().parent
 RINEX = ROOT / "tests" / "data" / "brdc_test.23n"
 LLH = "35.681298,139.766247,10.0"
 OUT_DIR = ROOT / "chiprun_out" / "chip_smoke"
+KERNEL_SRC = (ROOT / "pluto_gps_sim_tpu_torch" / "ops" / "csrc"
+              / "synth_blocks.cu")
 TIMED_BLOCKS = 300          # one 30 s superframe at 2.6 MHz
 TIMED_SAMPLES = 260_000
 FS = 2_600_000.0
 MC_B, MC_CHUNK = 256, 3000  # the full-width Monte-Carlo batch
+
+# The least time the card could take for the kernel's work (kernel_bound):
+# the larger of the operations the function needs over the SMs' 32-bit
+# issue rate and the bytes over the memory rate.  Each term counts the
+# least Hopper instruction sequence that computes it, where a multiply-add,
+# a shift-and-add (LEA.HI) and a three-input logic op (LOP3) are one each;
+# address arithmetic is not counted.  Per (active channel or patch word,
+# sample): the carrier index 6 (two ramp multiply-adds, the f32 residual
+# product and its truncation, an add, a shift-and-add), the chip 9 (three
+# ramp multiply-adds, the f32 product and its truncation, an add, two
+# shift-and-adds, a shift), the key, lookup and add 3 (phase >> 23 added
+# to the sign bit in one shift-and-add, a shared load, an add); and the
+# spreading sign, the cheaper of 7 per sample (chip // 1023 and its
+# remainder 2, the nav bit 3, the C/A bit's load 1, their XOR at bit 9 1)
+# and 1 per sample (a load from a window of the chips' signs) plus those
+# 7 and the window's store per chip the channel reaches.  Per sample 4 (n
+# to f32, un-bias I and Q, pack).  Chips per sample come from the inputs
+# (vq / 2^12).  The per-row tables (~0.1 % more) are left out.  Over 128
+# 32-bit lanes per clock and SM, the most any SM issues (the H100 SXM's
+# published float32 rate, 67 TFLOP/s, is the same lanes counting a
+# multiply-add twice), at the card's maximum SM clock; bytes over the H100
+# SXM's 3.35 TB/s, each input read once and each output written once.
+OPS_PER_CHANNEL_SAMPLE = 6 + 9 + 3
+OPS_SIGN_PER_SAMPLE = 7
+OPS_SIGN_WINDOW = (1, OPS_SIGN_PER_SAMPLE + 1)   # per sample, per chip
+OPS_PER_SAMPLE = 4
+LANES_PER_CLK_SM = 128
+HBM_BYTES_PER_S = 3.35e12
 
 
 def _phase(name: str, t0: float, msg: str = "") -> None:
@@ -86,12 +121,133 @@ def _phase(name: str, t0: float, msg: str = "") -> None:
           flush=True)
 
 
-def _card_line() -> str:
+def _smi(query: str) -> str:
+    """nvidia-smi's --query-gpu line for card 0."""
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()
     return out[0]
+
+
+def _card_line() -> str:
+    return _smi("name,power.limit")
+
+
+def _mhz(v: str) -> float:
+    return float(v.split()[0])
+
+
+# ---------------------------------------------------------------------------
+# the kernel's SASS: instruction counts of its K1 channel loop
+# ---------------------------------------------------------------------------
+
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_]*)(?:\.[A-Z0-9_]+)*\s*([^;]*);")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_SASS_TARGET = re.compile(r"`\((\.L_x_\d+)\)|\b(0x[0-9a-f]+)\b")
+
+
+def sass_listing(lib_path: str, out: Path) -> str:
+    """cuobjdump -sass of a built library, also written to `out`."""
+    from pluto_gps_sim_tpu_torch.ops.cuda_build import find_nvcc
+    cuobjdump = str(Path(find_nvcc()).with_name("cuobjdump"))
+    text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    out.write_text(text)
+    return text
+
+
+def sass_loops(text: str, kernel: str = "synth_blocks_kernel") -> list[dict]:
+    """The kernel's innermost loops (a backward branch and its target,
+    with no other loop inside), each with its opcode counts."""
+    insns, labels, pending, inside = [], {}, [], False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        if not inside:
+            continue
+        m = _SASS_LABEL.match(line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = _SASS_INSN.search(line)
+        if m:
+            addr = int(m.group(1), 16)
+            labels.update((lab, addr) for lab in pending)
+            pending = []
+            insns.append((addr, m.group(2), m.group(3)))
+    spans = []
+    for addr, op, args in insns:
+        m = _SASS_TARGET.search(args) if op == "BRA" else None
+        if m:
+            tgt = labels.get(m.group(1)) if m.group(1) else int(m.group(2), 16)
+            if tgt is not None and tgt <= addr:
+                spans.append((tgt, addr))
+    inner = [s for s in spans if not any(
+        o != s and s[0] <= o[0] and o[1] <= s[1] for o in spans)]
+    return [{"start": hex(lo), "end": hex(hi),
+             "ops": dict(collections.Counter(
+                 op for a, op, _ in insns if lo <= a <= hi))}
+            for lo, hi in sorted(set(inner))]
+
+
+def k1_loop_counts(text: str, samples_per_thread: int) -> dict:
+    """Counts of the K1 channel loop: the first innermost loop that reads
+    shared memory and neither reads device memory nor writes shared
+    memory (one channel x samples_per_thread samples per iteration)."""
+    loop = next((lp for lp in sass_loops(text)
+                 if lp["ops"].get("LDS") and not lp["ops"].get("LDG")
+                 and not lp["ops"].get("STS")), None)
+    if loop is None:
+        raise ValueError("no loop of the kernel's SASS looks like K1")
+    ops = loop["ops"]
+    total = sum(ops.values())
+    i2f = sum(v for k, v in ops.items() if k.startswith("I2F"))
+    f2i = sum(v for k, v in ops.items() if k.startswith("F2I"))
+    per = float(samples_per_thread)
+    return {"loop": f"{loop['start']}-{loop['end']}",
+            "per_iteration": {"all": total, "I2F": i2f, "F2I": f2i,
+                              "LDS": ops.get("LDS", 0)},
+            "per_channel_sample": {"all": total / per,
+                                   "conversions": (i2f + f2i) / per,
+                                   "LDS": ops.get("LDS", 0) / per}}
+
+
+def samples_per_thread(src: Path) -> int:
+    return int(re.search(r"kSamplesPerThread = (\d+)",
+                         src.read_text()).group(1))
+
+
+def kernel_bound(prmi, prmf, ca, sf_map, n: int, packed: bool,
+                 n_sm: int, clock_hz: float) -> dict:
+    """The least time the card could take for synth_blocks on these
+    inputs: the larger of the operations they need over the SMs' 32-bit
+    issue rate and the bytes over the memory rate (see the constants)."""
+    import numpy as np
+
+    from pluto_gps_sim_tpu_torch.ops import synth_cuda as sc
+    vq_slot = sc._LANES + sc._SLOT_I[sc._P_VQ]
+    chans = prmf[:, sc._F_GAIN:sc._F_GAIN + sc._C] != 0
+    words = prmf[:, [sc.patch_word_lane(k) for k in range(sc._N_PATCH)]] != 0
+    vq = np.concatenate([
+        prmi[:, sc._P_VQ:sc._P_VQ + sc._C][chans],
+        prmi[:, [vq_slot + sc._SLOT_I_W * k
+                 for k in range(sc._N_PATCH)]][words]])
+    chips_per_sample = vq.astype(np.uint32) / 4096.0
+    sign = np.minimum(OPS_SIGN_PER_SAMPLE,
+                      OPS_SIGN_WINDOW[0] + OPS_SIGN_WINDOW[1] * chips_per_sample)
+    ops = float((OPS_PER_CHANNEL_SAMPLE * vq.size + sign.sum()
+                 + OPS_PER_SAMPLE * prmi.shape[0]) * n)
+    nbytes = (prmi.shape[0] * n * (4 if packed else 8) + prmi.nbytes
+              + prmf.nbytes + ca.nbytes + sf_map.nbytes + sc._PAIRTAB.nbytes)
+    ops_ms = ops / (LANES_PER_CLK_SM * n_sm * clock_hz) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"ops": ops, "ops_per_channel_sample": ops / (max(vq.size, 1) * n),
+            "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def _scenario():
@@ -210,16 +366,22 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_build() -> float:
+def phase_build() -> dict:
     from pluto_gps_sim_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
-    cuda_build.load_kernel("synth_blocks")
-    dt = time.perf_counter() - t0
+    lib = cuda_build.load_kernel("synth_blocks")
     log = cuda_build.build_logs.get("synth_blocks", "(loaded from cache)")
     (OUT_DIR / "nvcc_synth_blocks.log").write_text(log)
     regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
     _phase("build synth_blocks.cu", t0, "; ".join(regs))
-    return dt
+    sass = sass_listing(lib._name, OUT_DIR / "synth_blocks.sass")
+    (OUT_DIR / "sass_loops.json").write_text(
+        json.dumps(sass_loops(sass), indent=1))
+    k1 = k1_loop_counts(sass, samples_per_thread(KERNEL_SRC))
+    print(f"[sass] K1 loop {k1['loop']}: per iteration "
+          f"{json.dumps(k1['per_iteration'])}, per channel-sample "
+          f"{json.dumps(k1['per_channel_sample'])}", flush=True)
+    return k1
 
 
 def phase_compare(scen) -> int:
@@ -233,6 +395,10 @@ def phase_compare(scen) -> int:
                      tables=False)
     in26 = _inputs([dp26])
     errs.append(_compare_case("fs=2.6MHz 4 blocks", *in26))
+
+    dp1 = pack_plan(Scheduler(rin, g0, ieph, xyz, fs=1e6).plan(4),
+                    tables=False)
+    errs.append(_compare_case("fs=1MHz 4 blocks", *_inputs([dp1])))
 
     dp5 = pack_plan(Scheduler(rin, g0, ieph, xyz, fs=5e6).plan(4),
                     tables=False)
@@ -310,7 +476,7 @@ def phase_groups(scen) -> int:
     return err
 
 
-def phase_timing() -> tuple[float, float]:
+def phase_timing() -> dict:
     import torch
 
     from pluto_gps_sim_tpu_torch.ops import synth_cuda as sc
@@ -331,11 +497,27 @@ def phase_timing() -> tuple[float, float]:
     del kern, plain
     ms = _time_ms(lambda: sc.synth_blocks(*args, n), reps=20)
     plain_ms = _time_ms(lambda: sc.synth_blocks_plain(*args, n), reps=3)
+    for _ in range(300):            # the SM clock under load
+        sc.synth_blocks(*args, n)
+    clock = _smi("clocks.sm")
+    torch.cuda.synchronize()
+    max_clock = _mhz(_smi("clocks.max.sm"))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    bound = kernel_bound(bp.prmi, bp.prmf, ca, sf_map, n, True, n_sm,
+                         max_clock * 1e6)
     gsps = TIMED_BLOCKS * TIMED_SAMPLES / (ms * 1e-3) / 1e9
+    share = bound["bound_ms"] / ms
     _phase("time 300x260000x12ch", t0,
            f"kernel {ms:.4f} ms ({gsps:.2f} Gsample/s), "
            f"plain twin on the card {plain_ms:.3f} ms, words equal")
-    return ms, plain_ms
+    print(f"[bound] bytes {bound['bytes']} -> {bound['bytes_ms']:.4f} ms; "
+          f"operations {bound['ops']:.6g} "
+          f"({bound['ops_per_channel_sample']:.3f} per channel-sample) on "
+          f"{n_sm} SMs at {max_clock:.0f} MHz -> {bound['ops_ms']:.4f} ms; "
+          f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, kernel "
+          f"at {share:.1%} of it; clocks.sm under load {clock}", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "sm_clock_under_load": clock,
+            "max_sm_clock_mhz": max_clock, "bound_share": share, **bound}
 
 
 def _cli(argv: list[str]) -> tuple[int, str]:
@@ -918,10 +1100,10 @@ def main() -> int:
 
     card = _card_line()
     print(f"[card] {card}", flush=True)
-    phase_build()
+    k1 = phase_build()
     scen = _scenario()
     max_err = max(phase_compare(scen), phase_groups(scen))
-    ms, plain_ms = phase_timing()
+    timing = phase_timing()
     launches, rtf = phase_main_path()
     phase_file(scen)
     golden = phase_golden(scen)
@@ -942,9 +1124,12 @@ def main() -> int:
         "launches": launches + mc_launches + mesh_launches,
         "max_abs_err": max(max_err, mc_err,
                            mesh["kernel_vs_twin_max_abs_err"]),
-        "ms": ms, "plain_ms": plain_ms}]}
+        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+        "library_ms": None}]}
     (OUT_DIR / "result.json").write_text(json.dumps(
-        {**kernels, "card": card, "realtime_factor": rtf,
+        {**kernels, "card": card, "timing": timing, "k1_sass": k1,
+         "realtime_factor": rtf,
          "golden": golden, "montecarlo": mc, "mesh": mesh,
          "receiver": receiver, "realtime_wall_s": realtime_wall,
          "wall_s": time.perf_counter() - t_all}, indent=1))

@@ -26,7 +26,11 @@ IQ (the math is in ``docs/KERNEL_MATH.md``):
             (_check_quadrant_identities proves both bit-identical);
             gain scaling iv = trunc(f32(T)*f32(gain)); the spreading sign
             (chip XOR nav bit) complements around a 1024 bias per channel
-            so I (low 16 bits) and Q (high 16) share one int32 accumulator
+            so I (low 16 bits) and Q (high 16) share one int32 accumulator.
+            The TPU kernel evaluated the gain product per sample; the
+            CUDA kernel and the twin read it, signed, from a per-row
+            table (gain_sign_table_plain) indexed by itab | sign << 9,
+            built with the same expression, so the sum is the same word
   patches   up to 7 gain-trunc patch words per block, each +-1 where the
             LUT value equals the patched magnitude (see _SLOT_I)
   output    un-bias with the in-kernel count of executed channels, pack
@@ -60,10 +64,10 @@ import torch
 from ..constants import CA_SEQ_LEN, MAX_CHAN
 from ..models.tables import COS_TABLE_512, SIN_TABLE_512
 
-__all__ = ["synth_blocks", "synth_blocks_plain", "build_block_params",
-           "build_group_params", "pack_ca_tables", "unpack_iq",
-           "BlockParams", "MAX_BLOCK_SAMPLES", "MAX_KERNEL_SAMPLES",
-           "launch_count", "reset_launch_count"]
+__all__ = ["synth_blocks", "synth_blocks_plain", "gain_sign_table_plain",
+           "build_block_params", "build_group_params", "pack_ca_tables",
+           "unpack_iq", "BlockParams", "MAX_BLOCK_SAMPLES",
+           "MAX_KERNEL_SAMPLES", "launch_count", "reset_launch_count"]
 
 # Q24 code-NCO range bound: the per-sample integer residual ramp r24*n
 # (r24 <= 4095) must stay inside int32, so blocks are capped at 524k
@@ -128,11 +132,14 @@ def patch_word_lane(k: int) -> int:
     """Lane of patch slot k's word in the packed [M, 256] float plane."""
     return _LANES + _SLOT_F_W * k + _SLOT_WORD
 
-# 1/1023 rounded UP in f32: trunc(chip * _INV1023) == chip // 1023 exactly
-# for 0 <= chip < 600_000 (verified exhaustively; max chip under
-# MAX_BLOCK_SAMPLES is ~537k)
+# chip // 1023: the TPU kernel multiplies by 1/1023 rounded UP in f32,
+# trunc(f32(chip) * _INV1023); the CUDA kernel and the twin take the
+# multiply-high (chip * _DIV1023) >> 32 with _DIV1023 = ceil(2^32/1023).
+# Both equal chip // 1023 for every chip < 2^20, i.e. every value a u32
+# tq >> 12 can take (tests/test_torch_synth_tables.py checks all of them)
 _INV1023 = np.float32(np.nextafter(np.float32(1.0 / 1023.0),
                                    np.float32(np.inf)))
+_DIV1023 = 0x401005
 
 # distinct nonzero |T| over both LUT halves, for the gain-trunc patch
 # detector (see _SLOT_I): trunc is odd, so checking each magnitude once
@@ -203,7 +210,8 @@ def build_group_params(dps: list, nudge: bool = True) -> BlockParams:
     act = np.concatenate([d.active for d in dps], axis=0)
     gain64 = np.concatenate([d.gain for d in dps], axis=0)
     v = np.concatenate([d.v for d in dps], axis=0)
-    # in-kernel f32 reciprocal division is exact for chip < 600k
+    # the JAX package's bound, kept so both refuse the same plans: the TPU
+    # kernel's f32 reciprocal division is exact only for chip < 600k
     assert float(np.max(np.abs(v))) <= 1.1, \
         "code rate out of range for the kernel's chip arithmetic"
     # biased-accumulator budget: |trunc(table*gain)| <= 1024
@@ -552,8 +560,9 @@ _PAIRTAB = ((((np.asarray(COS_TABLE_512, np.int64) + 512)
               | ((np.asarray(SIN_TABLE_512, np.int64) + 512) << 16))
              & 0xFFFFFFFF).astype(np.uint32).view(np.int32))
 
-# the CUDA source spells _INV1023 as a bit pattern
+# the TPU kernel's _INV1023 bits, and the CUDA source's kDiv1023
 assert int(np.array(_INV1023).view(np.uint32)) == 0x3A802009
+assert _DIV1023 == -(-2**32 // CA_SEQ_LEN)
 
 # the NCO ramps stay inside their 32-bit ranges only for sample indices
 # n < 524288: the Q36 residual res0 + r*n + trunc(rrr*n) (each term
@@ -680,8 +689,9 @@ def synth_blocks(prmi, prmf, ca_tabs, sf_map, block_samples: int,
 
     CUDA tensors launch the CUDA kernel on the current stream (the
     output is allocated with torch.empty and not synchronized); a build
-    or launch failure raises.  CPU tensors (or numpy arrays) run the
-    plain twin synth_blocks_plain.  There is no other fallback."""
+    or launch failure raises, a refused request for the kernel's 48 KB
+    of dynamic shared memory included.  CPU tensors (or numpy arrays)
+    run the plain twin synth_blocks_plain.  There is no other fallback."""
     block_samples = int(block_samples)
     prmi, prmf, ca_tabs, sf_map = _check_args(prmi, prmf, ca_tabs, sf_map,
                                               block_samples)
@@ -737,14 +747,19 @@ def _trunc_i(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int32).to(torch.int64)
 
 
-def _chan_vals(pi, pf, ca_rows, pair, n, nf):
+def _div1023(chip: torch.Tensor) -> torch.Tensor:
+    """chip // 1023 by the kernel's multiply-high (exact for chip < 2^20)."""
+    return (chip * _DIV1023) >> 32
+
+
+def _chan_key(pi, pf, ca_rows, n, nf):
     """The kernel's per-sample chain for one channel on R rows.
 
     pi: [R, 10] int64 (PHASE0, STEP, CP0Q, VQ, NBM, IC0, RES0Q24, R24,
     RES0Q36, R36); pf: [R, 4] float32 (SR12, SREM, CQ12, RRR);
-    ca_rows: [R, 128] int64 u32 words; pair: [512] int64; n: [S] int64;
-    nf: [S] float32.  Returns (tc, ts, neg): the signed LUT pair and the
-    0/1 spreading sign, each [R, S] int64."""
+    ca_rows: [R, 128] int64 u32 words; n: [S] int64; nf: [S] float32.
+    Returns the [R, S] int64 key itab | sign << 9: the 9-bit LUT index
+    and the 0/1 spreading sign (C/A chip XOR nav bit)."""
     (phase0, step, cp0q, vq, nbm, ic0,
      res0q24, r24, res0q36, r36) = (pi[:, j:j + 1] for j in range(10))
     sr12, srem = _trunc_i(pf[:, 0:1]), pf[:, 1:2]
@@ -756,17 +771,31 @@ def _chan_vals(pi, pf, ca_rows, pair, n, nf):
     rq36 = _u32(res0q36 + r36 * n + _trunc_i(rrr * nf))
     rq24 = _u32(res0q24 + r24 * n + (rq36 >> 12))
     chip = _u32(cp0q + vq * n + (rq24 >> 12)) >> 12
-    w = _trunc_i(chip.to(torch.float32) * float(_INV1023))
-    cidx = _s32(chip - w * CA_SEQ_LEN)
+    w = _div1023(chip)
+    cidx = chip - w * CA_SEQ_LEN                   # in [0, 1022]
 
     q = _u32((ic0 + w) * 3277) >> 16
     nbit = torch.where(q < 32, (_u32(nbm) >> q.clamp(max=31)) & 1, 0)
-    ucidx = _u32(cidx)
-    word = torch.gather(ca_rows, 1, (ucidx >> 5) & (_LANES - 1))
-    cbit = (word >> (ucidx & 31)) & 1
+    word = torch.gather(ca_rows, 1, cidx >> 5)
+    cbit = (word >> (cidx & 31)) & 1
+    return itab | ((cbit ^ nbit) << 9)
 
-    p = pair[itab]
-    return (p & 0xFFFF) - 512, (p >> 16) - 512, cbit ^ nbit
+
+def gain_sign_table_plain(prmf) -> torch.Tensor:
+    """The kernel's per-row gain-and-sign tables: [M, 12, 1024] int64
+    holding u32 words, entry itab | s << 9 of channel c being
+    u = (trunc(f32(tc)*g) + 1024) | (trunc(f32(ts)*g) + 1024) << 16 for
+    the LUT pair (tc, ts) at itab and the channel's f32 gain g, or
+    kBias2 - u (mod 2^32) where the spreading sign s negates the sample.
+    prmf: the [M, 256] float32 plane (only its gain lanes are read)."""
+    prmf = _as_tensor(prmf, torch.float32)
+    g = prmf[:, _F_GAIN:_F_GAIN + _C, None]                 # [M, 12, 1]
+    e = torch.arange(1024, dtype=torch.int64, device=prmf.device)
+    p = _pairtab_on(prmf.device).to(torch.int64)[e & 511]
+    iv = _trunc_i(((p & 0xFFFF) - 512).to(torch.float32) * g)
+    qv = _trunc_i(((p >> 16) - 512).to(torch.float32) * g)
+    u = (iv + 1024) | ((qv + 1024) << 16)
+    return _u32(torch.where((e >> 9) == 1, 0x08000800 - u, u))
 
 
 def _twin_rows(prmi, prmf, ca, pair, n, nf):
@@ -775,8 +804,8 @@ def _twin_rows(prmi, prmf, ca, pair, n, nf):
     pi_all = prmi.to(torch.int64)
     acc = torch.zeros((prmi.shape[0], n.shape[0]), dtype=torch.int64,
                       device=n.device)
-    gains = prmf[:, _F_GAIN:_F_GAIN + _C]
-    active = gains != 0.0
+    active = prmf[:, _F_GAIN:_F_GAIN + _C] != 0.0
+    tab = gain_sign_table_plain(prmf)
     # K1: every channel slot with nonzero gain (rows without it add 0)
     for c in range(_C):
         act = active[:, c:c + 1]
@@ -784,12 +813,8 @@ def _twin_rows(prmi, prmf, ca, pair, n, nf):
             continue
         pi = pi_all[:, c:_P_R36 + c + 1:_C]
         pf = prmf[:, c:_F_RRR + c + 1:_C]
-        tc, ts, neg = _chan_vals(pi, pf, ca[:, c], pair, n, nf)
-        g = gains[:, c:c + 1]
-        iv = _trunc_i(tc.to(torch.float32) * g)
-        qv = _trunc_i(ts.to(torch.float32) * g)
-        u = (iv + 1024) | ((qv + 1024) << 16)
-        acc += torch.where(act, torch.where(neg == 1, 0x08000800 - u, u), 0)
+        key = _chan_key(pi, pf, ca[:, c], n, nf)
+        acc += torch.where(act, torch.gather(tab[:, c], 1, key), 0)
     # K2: gain-trunc patch words (an empty slot self-cancels)
     zero_row = torch.zeros((1, _LANES), dtype=torch.int64, device=n.device)
     for k in range(_N_PATCH):
@@ -811,10 +836,11 @@ def _twin_rows(prmi, prmf, ca, pair, n, nf):
                                                       _LANES)], dim=1)
         ca_rows = ca_pad[torch.arange(rows.numel(), device=n.device),
                          c.clamp(max=_C).flatten()]
-        tc, ts, neg = _chan_vals(pi, pf, ca_rows, pair, n, nf)
-        tgt = torch.where(half == 0, tc, ts)
+        key = _chan_key(pi, pf, ca_rows, n, nf)
+        pr = pair[key & 511]
+        tgt = torch.where(half == 0, (pr & 0xFFFF) - 512, (pr >> 16) - 512)
         p = (tgt == a).to(torch.int64) - (tgt == b).to(torch.int64)
-        term = torch.where(neg == 1, -p, p)
+        term = torch.where((key >> 9) == 1, -p, p)
         acc[rows] = _u32(acc[rows] + _u32(_u32(term) << (half * 16)))
     nact = active.sum(dim=1, keepdim=True).to(torch.int64)
     return _u32(acc), nact

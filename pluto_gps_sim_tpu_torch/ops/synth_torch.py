@@ -350,9 +350,10 @@ def _precise_rows(u, v, c0, cp0, b0, ic0, qcos_pm, qsin_pm, ca2, bits, n):
 
 
 def synth_superframe_precise_async(dp: DevicePlan,
-                                   device="cpu") -> torch.Tensor:
+                                   device="cuda") -> torch.Tensor:
     """f64 golden synthesis -> int16 tensor [M, N, 2] on `device`
-    (enqueued on the current CUDA stream there).  Needs a tables=True
+    (enqueued on the current CUDA stream there; cuda by default, which
+    raises without a card, as resolve_device says).  Needs a tables=True
     DevicePlan (the f64 gain LUTs)."""
     dev = resolve_device(device)
     m, c, n = dp.n_blocks, MAX_CHAN, dp.block_samples
@@ -377,16 +378,17 @@ def synth_superframe_precise_async(dp: DevicePlan,
     return out
 
 
-def synth_superframe_precise(dp: DevicePlan, device="cpu") -> np.ndarray:
+def synth_superframe_precise(dp: DevicePlan, device="cuda") -> np.ndarray:
     """f64 golden synthesis -> int16 [M, N, 2] on the host, computed on
     `device` (cuda or cpu; the two agree word for word)."""
     return synth_superframe_precise_async(dp, device).cpu().numpy()
 
 
 def synth_superframe_tiled_async(dp: DevicePlan,
-                                 device="cpu") -> torch.Tensor:
+                                 device="cuda") -> torch.Tensor:
     """Tiled-path synthesis -> int16 tensor [M, N, 2] on `device`
-    (enqueued on the current CUDA stream there).  Needs a tables=True
+    (enqueued on the current CUDA stream there; cuda by default, which
+    raises without a card, as resolve_device says).  Needs a tables=True
     DevicePlan (gain LUTs and per-tile anchors at TILE).
 
     The NCOs are the synthesis kernel's multi-level scheme on per-tile
@@ -449,6 +451,6 @@ def synth_superframe_tiled_async(dp: DevicePlan,
     return out
 
 
-def synth_superframe_tiled(dp: DevicePlan, device="cpu") -> np.ndarray:
+def synth_superframe_tiled(dp: DevicePlan, device="cuda") -> np.ndarray:
     """Tiled-path synthesis -> int16 [M, N, 2] on the host."""
     return synth_superframe_tiled_async(dp, device).cpu().numpy()

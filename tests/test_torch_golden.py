@@ -110,7 +110,7 @@ def test_precise_fill_past_lut_row_matches_jax():
         carr_phase=np.zeros((1, c)), gain=np.where(active, 0.7, 0.0),
         azel=np.zeros((1, c, 2)))
     want = sj.synth_superframe_precise(sj.pack_plan(plan))
-    got = st.synth_superframe_precise(st.pack_plan(plan))
+    got = st.synth_superframe_precise(st.pack_plan(plan), device="cpu")
     assert np.array_equal(got, want)
 
 
@@ -120,7 +120,7 @@ def test_pallas_matches_precise(scenario):
     2.6 MHz, array_equal."""
     plan = _plan(scenario, 2_600_000.0, None, 2)
     dp = st.pack_plan(plan)
-    golden = st.synth_superframe_precise(dp)
+    golden = st.synth_superframe_precise(dp, device="cpu")
     bp = sc.build_block_params(dp)
     assert bp.patch_dropped == 0
     packed = sc.synth_blocks(bp.prmi, bp.prmf, sc.pack_ca_tables([dp.ca2]),
@@ -190,18 +190,23 @@ def test_stream_rejects_unknown_mode(rinex_pair):
 def test_tensor_paths_need_tables(scenario):
     dp = st.pack_plan(_plan(scenario, 1_000_000.0, 4096, 1), tables=False)
     with pytest.raises(ValueError, match="tables=True"):
-        st.synth_superframe_precise(dp)
+        st.synth_superframe_precise(dp, device="cpu")
     with pytest.raises(ValueError, match="tables=True"):
-        st.synth_superframe_tiled(dp)
+        st.synth_superframe_tiled(dp, device="cpu")
 
 
 def test_tensor_paths_cuda_without_gpu_raise(scenario, monkeypatch):
-    """device="cuda" without a GPU raises; nothing falls back."""
+    """device="cuda", the default, without a GPU raises; nothing falls
+    back."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     dp = st.pack_plan(_plan(scenario, 1_000_000.0, 4096, 1))
-    for fn in (st.synth_superframe_precise, st.synth_superframe_tiled):
+    for fn in (st.synth_superframe_precise, st.synth_superframe_tiled,
+               st.synth_superframe_precise_async,
+               st.synth_superframe_tiled_async):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(dp, device="cuda")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(dp)
     with pytest.raises(ValueError, match="unsupported device"):
         st.synth_superframe_tiled(dp, device="meta")
 

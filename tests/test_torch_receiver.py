@@ -61,7 +61,7 @@ def one_block(scenario):
     """One precise-path block (0.1 s) plus the plan that produced it."""
     rin, g0, ieph, xyz = scenario
     plan = Scheduler(rin, g0, ieph, xyz, fs=FS).plan(1)
-    return plan, synth_superframe_precise(pack_plan(plan))
+    return plan, synth_superframe_precise(pack_plan(plan), device="cpu")
 
 
 def _active(plan):
@@ -187,7 +187,7 @@ def test_tracking_locks_on_plan(scenario):
     frequency, and the demodulated bits are a run of the planned ones."""
     rin, g0, ieph, xyz = scenario
     plan = Scheduler(rin, g0, ieph, xyz, fs=FS).plan(20)
-    iq = synth_superframe_precise(pack_plan(plan))
+    iq = synth_superframe_precise(pack_plan(plan), device="cpu")
     c = int(np.argmax(plan.gain[0] * plan.active[0]))
     prn = int(plan.prn[c])
     a = acquire(iq, FS, prn)
