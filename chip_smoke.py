@@ -12,13 +12,15 @@ exits non-zero):
      the CPU), word for word: the fixture scenario at 2.6 MHz, 1 MHz
      (the most chips per sample), 5 MHz (n reaches 499,999), a 10 MHz
      plan split into 2 sub-blocks, a patch-carrying nudge=False plan,
-     and the packed=False epilogue; then kernel and twin both on the
-     card at every dispatch group of phase 3's main path (1, 2, 4 and 3
-     superframes, multi-superframe sf_map), word for word; then both
-     timed on the card at 300 blocks x 260,000 samples x 12 channels
-     (CUDA events), with their words compared again, beside the least
-     time the card could take for that work (kernel_bound) and the SM
-     clock under load;
+     active slots with holes (plus patch words) and the packed=False
+     epilogue; then kernel and twin both on the card at every dispatch
+     group of phase 3's main path (1, 2, 4 and 3 superframes,
+     multi-superframe sf_map), word for word; then both timed on the
+     card at 300 blocks x 260,000 samples x 12 channels (CUDA events),
+     with their words compared again, beside the least time the card
+     could take for that work (kernel_bound) and the SM clock under
+     load, and the kernel alone at 300 x 100,000 (1 MHz) and 300 x
+     500,000 (5 MHz);
   3. the CLI's main path on cuda: -s 2600000 -d 300
      --dispatch-superframes 8 --sink null --stats (3,000 blocks);
      asserts the kernel launched, no patch word was dropped and every
@@ -31,6 +33,17 @@ exits non-zero):
      exact, max err <= 8) on a 300-block superframe; the tiled path on
      the card equals its CPU run (4 blocks) and tracks precise (>= 0.999
      exact, SNR >= 70 dB) over the 300 blocks; both paths timed;
+ 5b. long run (the JAX package's device gates), each stream superframe
+     held on the card to a shadow Scheduler's plans: 4,500 blocks at
+     2.6 MHz across the ephemeris-set rollover, K=8, against the tiled
+     path (>= 1-1e-8 exact, max err <= 8, no patch drop); the hour soak,
+     37,000 blocks of 16,384 samples at 1 MHz, K=8, against the tiled
+     path (<= 2,400 mismatching components, max err <= 8, >= 8 PRNs,
+     the rollover, no all-zero superframe, no patch drop) and its
+     mid-run snapshot resumed word for word; dynamic motion (the circle
+     CSV) against the precise path (equal at 4 blocks, the short gate at
+     300) and the CLI's -u run; the kernel against precise at 5 MHz,
+     5 MHz with the ionosphere off and 10 MHz split (split and unsplit);
   6. Monte-Carlo, held: B=4 receivers a few metres apart, 8 blocks from
      0.4 s before a 30 s boundary; each receiver's rows equal a solo
      IqStream(mode="kernel") on the card word for word;
@@ -86,6 +99,17 @@ TIMED_BLOCKS = 300          # one 30 s superframe at 2.6 MHz
 TIMED_SAMPLES = 260_000
 FS = 2_600_000.0
 MC_B, MC_CHUNK = 256, 3000  # the full-width Monte-Carlo batch
+# the kernel also timed at 1 MHz and 5 MHz: (fs, samples per block)
+TIMED_RATES = ((1_000_000.0, 100_000), (5_000_000.0, 500_000))
+BOUNDARY_GAIN = 0.9086419713826426   # 405*g straddles an integer in f32
+# active-slot holes (inactive slots between active ones), one pattern per
+# block of the holes compare case
+HOLES = ((1, 4, 5, 8, 10), (0, 3, 6, 7, 11))
+# the long-run gates (phase_long_run)
+ROLLOVER_BLOCKS = 4500      # groups of 1, 2, 4 and 8 superframes
+SOAK_BLOCKS = 37_000        # one simulated hour and 100 s
+SOAK_FS, SOAK_BLOCK_SAMPLES = 1_000_000.0, 16384
+MOTION_CSV = ROOT / "tests" / "data" / "circle_test.csv"
 
 # The least time the card could take for the kernel's work (kernel_bound):
 # the larger of the operations the function needs over the SMs' 32-bit
@@ -279,9 +303,10 @@ def _inputs(dps, nudge: bool = True):
 
 
 def _synthetic_plan(n_blocks: int, n_samples: int, fs: float, seed: int,
-                    gain=None):
-    """A SuperframePlan with all 12 channel slots active, made from a
-    seed (random Dopplers, code phases, nav bits and gains)."""
+                    gain=None, active=None):
+    """A SuperframePlan with all 12 channel slots active (or those of
+    the [n_blocks, 12] mask `active`), made from a seed (random Dopplers,
+    code phases, nav bits and gains)."""
     import numpy as np
 
     from pluto_gps_sim_tpu_torch.constants import MAX_CHAN
@@ -290,7 +315,8 @@ def _synthetic_plan(n_blocks: int, n_samples: int, fs: float, seed: int,
     rng = np.random.RandomState(seed)
     C = MAX_CHAN
     shape = (n_blocks, C)
-    active = np.ones(shape, bool)
+    if active is None:
+        active = np.ones(shape, bool)
     f_carr = np.repeat(rng.uniform(-4500.0, 4500.0, (1, C)), n_blocks, 0)
     return SuperframePlan(
         n_blocks=n_blocks, block_samples=n_samples, delt=1.0 / fs,
@@ -414,7 +440,7 @@ def phase_compare(scen) -> int:
     # kept as patch words by nudge=False: exercises the patch pass
     import numpy as np
     gain = np.full((1, 12), 0.5)
-    gain[0, 1] = 0.9086419713826426
+    gain[0, 1] = BOUNDARY_GAIN
     dpp = pack_plan(_synthetic_plan(1, TIMED_SAMPLES, 2.6e6, seed=7,
                                     gain=gain), tables=False)
     inp = _inputs([dpp], nudge=False)
@@ -422,6 +448,24 @@ def phase_compare(scen) -> int:
              for k in range(sc._N_PATCH)]
     assert sum(w != 0 for w in words) == 2, words
     errs.append(_compare_case("patch words (nudge=False)", *inp))
+
+    # inactive slots between active ones (what a satellite that sets
+    # mid-run leaves), a different pattern in each block, and on the
+    # first block one straddling gain kept as patch words (its I and Q
+    # halves): the kernel's compaction of active slots and its patch pass
+    active = np.ones((len(HOLES), 12), bool)
+    for m, holes in enumerate(HOLES):
+        active[m, list(holes)] = False
+    gain = np.where(active, 0.5, 0.0)
+    gain[0, 2] = BOUNDARY_GAIN
+    dph = pack_plan(_synthetic_plan(len(HOLES), TIMED_SAMPLES, 2.6e6,
+                                    seed=13, gain=gain, active=active),
+                    tables=False)
+    inp = _inputs([dph], nudge=False)
+    words = inp[0].prmf[:, [sc.patch_word_lane(k)
+                            for k in range(sc._N_PATCH)]]
+    assert (words != 0).sum(axis=1).tolist() == [2, 0], words
+    errs.append(_compare_case("active-slot holes + patch words", *inp))
 
     errs.append(_compare_case("packed=False", *in26, packed=False))
     return max(errs)
@@ -476,25 +520,45 @@ def phase_groups(scen) -> int:
     return err
 
 
-def phase_timing() -> dict:
+def _timed_case(n_samples: int, fs: float):
+    """The 12-channel synthetic timing plan (300 blocks, seed 3) on the
+    card, its kernel output checked against the twin on the card word
+    for word; returns (kernel inputs on the host, on the card)."""
     import torch
 
     from pluto_gps_sim_tpu_torch.ops import synth_cuda as sc
     from pluto_gps_sim_tpu_torch.ops.synth_torch import pack_plan
-    t0 = time.perf_counter()
-    dp = pack_plan(_synthetic_plan(TIMED_BLOCKS, TIMED_SAMPLES, 2.6e6,
-                                   seed=3), tables=False)
-    bp, ca, sf_map, n = _inputs([dp])
-    assert bp.patch_dropped == 0
-    args = _to("cuda", bp, ca, sf_map)
-    kern = sc.synth_blocks(*args, n)
-    plain = sc.synth_blocks_plain(*args, n)
+    dp = pack_plan(_synthetic_plan(TIMED_BLOCKS, n_samples, fs, seed=3),
+                   tables=False)
+    inp = _inputs([dp])
+    assert inp[0].patch_dropped == 0
+    args = _to("cuda", *inp[:3])
+    kern = sc.synth_blocks(*args, n_samples)
+    plain = sc.synth_blocks_plain(*args, n_samples)
     torch.cuda.synchronize()
     bad = int((kern != plain).sum())
     if bad:
-        raise AssertionError(f"timing shape: kernel differs from the twin "
-                             f"on the card in {bad} words")
-    del kern, plain
+        raise AssertionError(f"timing shape {TIMED_BLOCKS}x{n_samples}: "
+                             f"kernel differs from the twin on the card in "
+                             f"{bad} words")
+    return inp, args
+
+
+def _bound_line(bound: dict, ms: float, n_sm: int, max_clock: float) -> str:
+    return (f"bytes {bound['bytes']} -> {bound['bytes_ms']:.4f} ms; "
+            f"operations {bound['ops']:.6g} "
+            f"({bound['ops_per_channel_sample']:.3f} per channel-sample) on "
+            f"{n_sm} SMs at {max_clock:.0f} MHz -> {bound['ops_ms']:.4f} ms;"
+            f" bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, "
+            f"kernel at {bound['bound_ms'] / ms:.1%} of it")
+
+
+def phase_timing() -> dict:
+    import torch
+
+    from pluto_gps_sim_tpu_torch.ops import synth_cuda as sc
+    t0 = time.perf_counter()
+    (bp, ca, sf_map, n), args = _timed_case(TIMED_SAMPLES, FS)
     ms = _time_ms(lambda: sc.synth_blocks(*args, n), reps=20)
     plain_ms = _time_ms(lambda: sc.synth_blocks_plain(*args, n), reps=3)
     for _ in range(300):            # the SM clock under load
@@ -510,14 +574,29 @@ def phase_timing() -> dict:
     _phase("time 300x260000x12ch", t0,
            f"kernel {ms:.4f} ms ({gsps:.2f} Gsample/s), "
            f"plain twin on the card {plain_ms:.3f} ms, words equal")
-    print(f"[bound] bytes {bound['bytes']} -> {bound['bytes_ms']:.4f} ms; "
-          f"operations {bound['ops']:.6g} "
-          f"({bound['ops_per_channel_sample']:.3f} per channel-sample) on "
-          f"{n_sm} SMs at {max_clock:.0f} MHz -> {bound['ops_ms']:.4f} ms; "
-          f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, kernel "
-          f"at {share:.1%} of it; clocks.sm under load {clock}", flush=True)
+    print(f"[bound] {_bound_line(bound, ms, n_sm, max_clock)}; clocks.sm "
+          f"under load {clock}", flush=True)
+    del args
+
+    rates = {}
+    for fs, n_samples in TIMED_RATES:
+        t1 = time.perf_counter()
+        (bp_r, ca_r, sf_r, n_r), args = _timed_case(n_samples, fs)
+        ms_r = _time_ms(lambda: sc.synth_blocks(*args, n_r), reps=20)
+        b = kernel_bound(bp_r.prmi, bp_r.prmf, ca_r, sf_r, n_r, True, n_sm,
+                         max_clock * 1e6)
+        name = f"{TIMED_BLOCKS}x{n_samples}x12ch"
+        _phase(f"time {name} (fs={fs / 1e6:g} MHz)", t1,
+               f"kernel {ms_r:.4f} ms ("
+               f"{TIMED_BLOCKS * n_samples / (ms_r * 1e-3) / 1e9:.2f} "
+               f"Gsample/s), words equal to the twin")
+        print(f"[bound] {name}: {_bound_line(b, ms_r, n_sm, max_clock)}",
+              flush=True)
+        rates[name] = {"ms": ms_r, "bound_share": b["bound_ms"] / ms_r, **b}
+        del args
     return {"ms": ms, "plain_ms": plain_ms, "sm_clock_under_load": clock,
-            "max_sm_clock_mhz": max_clock, "bound_share": share, **bound}
+            "max_sm_clock_mhz": max_clock, "bound_share": share, **bound,
+            "rates": rates}
 
 
 def _cli(argv: list[str]) -> tuple[int, str]:
@@ -551,16 +630,28 @@ def _kernel_iq(dp):
     from pluto_gps_sim_tpu_torch.ops import synth_cuda as sc
     bp, ca, sf_map, n = _inputs([dp])
     assert bp.patch_dropped == 0
-    packed = sc.synth_blocks(*_to("cuda", bp, ca, sf_map), n)
+    return _iq_on_card(sc.synth_blocks(*_to("cuda", bp, ca, sf_map), n))
+
+
+def _iq_on_card(packed):
+    """Packed int32 words -> int16 IQ [M, N, 2], on their device."""
+    import torch
     return torch.stack([(packed << 16) >> 16, packed >> 16],
                        dim=-1).to(torch.int16)
 
 
 def _exact_err(a, b) -> tuple[float, int]:
     """Exact fraction and max |difference| of two int16 IQ tensors."""
+    bad, err = _diff(a, b)
+    return 1.0 - bad / a.numel(), err
+
+
+def _diff(a, b) -> tuple[int, int]:
+    """Mismatching components and max |difference| of two int16 IQ
+    tensors on one device (only the two numbers cross to the host)."""
     import torch
     d = (a.to(torch.int32) - b.to(torch.int32)).abs()
-    return float((d == 0).double().mean()), int(d.max())
+    return int((d != 0).sum()), int(d.max()) if d.numel() else 0
 
 
 def _snr_db(ref, got) -> float:
@@ -633,6 +724,321 @@ def phase_golden(scen) -> dict:
     return {"kernel_vs_precise_exact": ex_k, "kernel_vs_precise_max_err":
             err_k, "tiled_vs_precise_exact": ex_t, "tiled_snr_db": snr_t,
             "precise_ms": precise_ms, "tiled_ms": tiled_ms}
+
+
+def _diagnose(plan, got, block: int) -> dict:
+    """Where a stream superframe `got` (packed words on the card) and its
+    reference disagree: the kernel's plain twin reruns the superframe on
+    the card from the shadow's plan and must equal the stream's words;
+    then the kernel, the tiled and the precise path are counted against
+    each other, with the blocks that hold the mismatches."""
+    import torch
+
+    from pluto_gps_sim_tpu_torch.ops import synth_cuda as sc
+    from pluto_gps_sim_tpu_torch.ops.synth_torch import (
+        pack_plan, synth_superframe_precise_async,
+        synth_superframe_tiled_async)
+    dev = got.device
+    bp, ca, sf_map, n = _inputs([pack_plan(plan, tables=False)])
+    twin = sc.synth_blocks_plain(*_to(dev, bp, ca, sf_map), n)
+    if not torch.equal(twin, got):
+        raise AssertionError(
+            f"block {block}: the stream's kernel output differs from the "
+            f"twin on the card in {int((twin != got).sum())} words")
+    dp = pack_plan(plan)
+    kern = _iq_on_card(got)
+    tiled = synth_superframe_tiled_async(dp, dev)
+    prec = synth_superframe_precise_async(dp, dev)
+    rows = ((kern != tiled) | (kern != prec) | (tiled != prec)).flatten(1)
+    out = {"block": block, "twin": "equal",
+           "blocks": (rows.any(dim=1).nonzero().flatten() + block).tolist()}
+    for name, (x, y) in {"kernel_vs_tiled": (kern, tiled),
+                         "kernel_vs_precise": (kern, prec),
+                         "tiled_vs_precise": (tiled, prec)}.items():
+        out[name] = _diff(x, y)
+    return out
+
+
+def _hold_to_shadow(stream, shadow, n_blocks: int, ref,
+                    on_group=None) -> dict:
+    """Hold a kernel IqStream to `ref` (the tiled or precise path) run
+    on the stream's device on a shadow Scheduler's plans, superframe by
+    superframe.
+
+    Each dispatch group the stream yields (packed words on the card,
+    as_device=True) is sliced into 300-block superframes; the shadow
+    plans each slice with plan(k) for its length k, which must come back
+    k blocks long (both stay on the 30 s grid), and the slice's I and Q
+    are compared on the device with ref's.  Only counts and maxima cross
+    to the host; a superframe with mismatches is diagnosed (_diagnose).
+    on_group(done, packed) runs after each group.  Returns the group
+    sizes (in superframes), blocks, components compared, mismatching
+    components, the largest |difference|, the all-zero superframes, the
+    PRNs the shadow planned and the diagnoses."""
+    from pluto_gps_sim_tpu_torch.ops.synth_torch import pack_plan
+    n, dev = shadow.block_samples, stream.device
+    groups, prns, diags = [], set(), []
+    done = total = bad = err = silent = 0
+    for packed in stream.superframes(n_blocks, as_device=True):
+        assert packed.shape[1] == n, (tuple(packed.shape), n)
+        off, n_sf = 0, 0
+        while off < packed.shape[0]:
+            k = min(300, packed.shape[0] - off)
+            plan = shadow.plan(k)
+            dp = pack_plan(plan)
+            if dp.n_blocks != k:
+                raise AssertionError(
+                    f"block {done + off}: the shadow planned {dp.n_blocks} "
+                    f"blocks for a {k}-block slice (off the 30 s grid)")
+            prns.update(int(p) for p in plan.prn if p > 0)
+            got = packed[off:off + k]
+            n_bad, m_err = _diff(_iq_on_card(got), ref(dp, dev))
+            if n_bad:
+                diags.append(_diagnose(plan, got, done + off))
+            bad, err = bad + n_bad, max(err, m_err)
+            silent += not bool(got.any())
+            total += 2 * k * n
+            off += k
+            n_sf += 1
+            del got
+        done += packed.shape[0]
+        groups.append(n_sf)
+        if on_group is not None:
+            on_group(done, packed)
+        del packed
+    return {"groups": groups, "blocks": done, "components": total,
+            "mismatches": bad, "max_err": err, "silent_superframes": silent,
+            "prns": sorted(prns), "diagnoses": diags}
+
+
+def _print_diagnoses(name: str, r: dict) -> None:
+    for d in r["diagnoses"]:
+        print(f"[long_run] {name}: {json.dumps(d)}", flush=True)
+
+
+def _long_rollover(scen) -> dict:
+    """test_compiled_production_group_rollover on the card: 4,500 blocks
+    at 2.6 MHz from 90 s before the ephemeris-set rollover, K=8 (groups
+    of 1, 2, 4 and 8 superframes), each superframe held to the tiled
+    path; >= 1-1e-8 exact, max err <= 8, no patch word dropped."""
+    from pluto_gps_sim_tpu_torch.models.gpstime import GpsTime, inc_gps_time
+    from pluto_gps_sim_tpu_torch.ops.synth_torch import (
+        synth_superframe_tiled_async)
+    from pluto_gps_sim_tpu_torch.runtime import (select_ephemeris_set,
+                                                 setup_scenario)
+    from pluto_gps_sim_tpu_torch.runtime.scheduler import Scheduler
+    from pluto_gps_sim_tpu_torch.runtime.stream import IqStream
+    rin, _, _, xyz = scen
+    t0 = time.perf_counter()
+    toc0 = GpsTime(int(rin.eph[0].toc_week[0]), float(rin.eph[0].toc_sec[0]))
+    g0 = setup_scenario(rin, inc_gps_time(toc0, 3540.0))
+    ieph = select_ephemeris_set(rin, g0)
+    stream = IqStream(rin, g0, ieph, xyz, fs=FS, mode="kernel",
+                      device="cuda", superframes_per_dispatch=8)
+    shadow = Scheduler(rin, g0, ieph, xyz, fs=FS)
+    r = _hold_to_shadow(stream, shadow, ROLLOVER_BLOCKS,
+                        synth_superframe_tiled_async)
+    _print_diagnoses("rollover", r)
+    exact = 1.0 - r["mismatches"] / r["components"]
+    r.update(exact=exact, ieph=[int(ieph), int(stream.sched.ieph),
+                               int(shadow.ieph)],
+             patch_dropped=stream.patch_dropped)
+    figures = (f"groups {r['groups']} blocks {r['blocks']}; ieph {ieph} -> "
+               f"{stream.sched.ieph} (shadow {shadow.ieph}); patch_dropped "
+               f"{stream.patch_dropped}; kernel vs tiled exact {exact:.10%} "
+               f"({r['mismatches']} of {r['components']}), max err "
+               f"{r['max_err']}")
+    if r["groups"] != [1, 2, 4, 8] or r["blocks"] != ROLLOVER_BLOCKS:
+        raise AssertionError(f"rollover gate: {figures}")
+    if (stream.sched.ieph, shadow.ieph) != (1, 1):
+        raise AssertionError(f"rollover gate: no rollover: {figures}")
+    if stream.patch_dropped or exact < 1 - 1e-8 or r["max_err"] > 8:
+        raise AssertionError(f"rollover gate: {figures}")
+    r["wall_s"] = time.perf_counter() - t0
+    _phase(f"long_run rollover {ROLLOVER_BLOCKS} blocks K=8", t0, figures)
+    return r
+
+
+def _long_soak(scen) -> dict:
+    """test_soak_one_hour_stream on the card: 37,000 blocks of 16,384
+    samples at 1 MHz, K=8, each superframe held to the tiled path (<=
+    2,400 mismatching components, max err <= 8), the rollover, >= 8
+    PRNs, no all-zero superframe, no patch word dropped; then the
+    snapshot taken once half the blocks were yielded resumes a fresh
+    kernel stream whose first block equals the original's next one."""
+    import torch
+
+    from pluto_gps_sim_tpu_torch.ops.synth_torch import (
+        synth_superframe_tiled_async)
+    from pluto_gps_sim_tpu_torch.runtime.scheduler import Scheduler
+    from pluto_gps_sim_tpu_torch.runtime.stream import IqStream
+    rin, g0, ieph, xyz = scen
+    t0 = time.perf_counter()
+    kw = dict(fs=SOAK_FS, block_samples=SOAK_BLOCK_SAMPLES)
+    stream = IqStream(rin, g0, ieph, xyz, mode="kernel", device="cuda",
+                      superframes_per_dispatch=8, **kw)
+    shadow = Scheduler(rin, g0, ieph, xyz, **kw)
+    splice: dict = {}
+
+    def at_group(done, packed):
+        if "snap" in splice and "next_row" not in splice:
+            splice["next_row"] = packed[:1].clone()
+        elif "snap" not in splice and done >= SOAK_BLOCKS // 2:
+            splice["snap"], splice["at"] = stream.snapshot(), done
+
+    r = _hold_to_shadow(stream, shadow, SOAK_BLOCKS,
+                        synth_superframe_tiled_async, at_group)
+    _print_diagnoses("hour soak", r)
+    r.update(ieph=[int(ieph), int(stream.sched.ieph), int(shadow.ieph)],
+             patch_dropped=stream.patch_dropped, snapshot_at=splice["at"])
+    figures = (f"groups {len(r['groups'])} blocks {r['blocks']}; ieph "
+               f"{ieph} -> {stream.sched.ieph} (shadow {shadow.ieph}); PRNs "
+               f"seen {len(r['prns'])} {r['prns']}; all-zero superframes "
+               f"{r['silent_superframes']}; patch_dropped "
+               f"{stream.patch_dropped}; kernel vs tiled {r['mismatches']} "
+               f"mismatching of {r['components']} (exact "
+               f"{1.0 - r['mismatches'] / r['components']:.10%}), max err "
+               f"{r['max_err']}")
+    if r["blocks"] != SOAK_BLOCKS or (stream.sched.ieph, shadow.ieph) \
+            != (1, 1) or len(r["prns"]) < 8 or r["silent_superframes"] \
+            or stream.patch_dropped or r["mismatches"] > 2400 \
+            or r["max_err"] > 8:
+        raise AssertionError(f"hour soak: {figures}")
+    snap = splice["snap"]
+    assert snap["jblk"] == splice["at"], (snap["jblk"], splice["at"])
+    resumed = IqStream(rin, g0, ieph, xyz, mode="kernel", device="cuda",
+                       **kw)
+    resumed.restore(snap)
+    first = torch.cat(list(resumed.superframes(1, as_device=True)))
+    if not torch.equal(first, splice["next_row"]):
+        raise AssertionError(
+            f"hour soak: the stream resumed at block {snap['jblk']} differs "
+            f"from the original in "
+            f"{int((first != splice['next_row']).sum())} words")
+    r["wall_s"] = time.perf_counter() - t0
+    _phase(f"long_run hour soak {SOAK_BLOCKS} blocks K=8", t0,
+           f"{figures}; resumed at block {snap['jblk']}: its first block "
+           f"equals the original's word for word")
+    return r
+
+
+def _short_gate(name: str, got, want) -> dict:
+    """The JAX package's short gate: >= 1-2e-6 exact, max err <= 8."""
+    exact, err = _exact_err(got, want)
+    if exact < 1 - 2e-6 or err > 8:
+        raise AssertionError(f"{name}: exact {exact:.8%}, max err {err}")
+    return {"exact": exact, "max_err": err}
+
+
+def _long_motion(scen) -> dict:
+    """Dynamic motion (BASELINE configs[2]) on the card: the circle CSV
+    (300 positions at 10 Hz) at 2.6 MHz, the kernel stream equal to the
+    precise path at 4 blocks and within the short gate over 300 (K=8),
+    then the CLI's -u run on the card: 300 blocks, no patch word
+    dropped."""
+    import torch
+
+    from pluto_gps_sim_tpu_torch.ingest import read_user_motion
+    from pluto_gps_sim_tpu_torch.ops.synth_torch import (
+        pack_plan, synth_superframe_precise_async)
+    from pluto_gps_sim_tpu_torch.runtime.scheduler import Scheduler
+    from pluto_gps_sim_tpu_torch.runtime.stream import IqStream
+    rin, g0, ieph, _ = scen
+    t0 = time.perf_counter()
+    xyz = read_user_motion(str(MOTION_CSV))
+    assert xyz.shape == (300, 3), xyz.shape
+    kw = dict(fs=FS, static_mode=False)
+    s4 = IqStream(rin, g0, ieph, xyz, mode="kernel", device="cuda", **kw)
+    k4 = _iq_on_card(torch.cat(list(s4.superframes(4, as_device=True))))
+    p4 = _precise_iq(pack_plan(Scheduler(rin, g0, ieph, xyz, **kw).plan(4)),
+                     "cuda")
+    if not torch.equal(k4, p4):
+        ex4, err4 = _exact_err(k4, p4)
+        raise AssertionError(f"motion, 4 blocks: kernel vs precise exact "
+                             f"{ex4:.6%}, max err {err4} (equal required)")
+    del k4, p4
+    stream = IqStream(rin, g0, ieph, xyz, mode="kernel", device="cuda",
+                      superframes_per_dispatch=8, **kw)
+    r = _hold_to_shadow(stream, Scheduler(rin, g0, ieph, xyz, **kw), 300,
+                        synth_superframe_precise_async)
+    _print_diagnoses("motion", r)
+    exact = 1.0 - r["mismatches"] / r["components"]
+    if r["blocks"] != 300 or stream.patch_dropped or exact < 1 - 2e-6 \
+            or r["max_err"] > 8:
+        raise AssertionError(f"motion, 300 blocks: exact {exact:.8%}, max "
+                             f"err {r['max_err']}, blocks {r['blocks']}, "
+                             f"patch_dropped {stream.patch_dropped}")
+    rc, err = _cli(["-e", str(RINEX), "-u", str(MOTION_CSV), "-s",
+                    "2600000", "-d", "30", "--dispatch-superframes", "8",
+                    "--sink", "null", "--stats", "--device", "cuda"])
+    assert rc == 0, f"CLI -u exited {rc}"
+    line = next(ln for ln in err.splitlines() if ln.startswith("sink stats"))
+    stats = json.loads(line.split("sink stats: ", 1)[1])
+    if stats["patch_dropped"] or stats["blocks"] != 300:
+        raise AssertionError(f"CLI -u: {stats}")
+    out = {"exact_300": exact, "max_err_300": r["max_err"],
+           "cli_blocks": stats["blocks"], "cli_crc32": stats["crc32"],
+           "wall_s": time.perf_counter() - t0}
+    _phase("long_run motion circle_test.csv", t0,
+           f"kernel == precise at 4 blocks; 300 blocks K=8 exact "
+           f"{exact:.8%} max err {r['max_err']}; CLI -u -d 30 "
+           f"blocks={stats['blocks']} patch_dropped="
+           f"{stats['patch_dropped']} crc32={stats['crc32']}")
+    return out
+
+
+def _long_rates(scen) -> dict:
+    """The rest of test_tpu_compiled on the card: the kernel against the
+    precise path within the short gate at 5 MHz (4 blocks), at 5 MHz
+    with the ionosphere off (as the CLI's -i sets it), and at 10 MHz
+    split into sub-blocks, against the split precise path and, its rows
+    reassembled, against the unsplit precise path."""
+    import numpy as np
+
+    from pluto_gps_sim_tpu_torch.ingest import read_rinex2
+    from pluto_gps_sim_tpu_torch.ops import synth_cuda as sc
+    from pluto_gps_sim_tpu_torch.ops.synth_torch import pack_plan, split_plan
+    from pluto_gps_sim_tpu_torch.runtime.scheduler import Scheduler
+    rin, g0, ieph, xyz = scen
+    t0 = time.perf_counter()
+    out = {}
+
+    def plan4(r, fs):
+        return pack_plan(Scheduler(r, g0, ieph, xyz, fs=fs).plan(4))
+
+    dp5 = plan4(rin, 5e6)
+    out["fs=5MHz"] = _short_gate("fs=5MHz", _kernel_iq(dp5),
+                                 _precise_iq(dp5, "cuda"))
+    rin_off = read_rinex2(str(RINEX))
+    rin_off.ionoutc.enable = np.array(False)
+    dp5o = plan4(rin_off, 5e6)
+    assert not np.array_equal(dp5o.cp0, dp5.cp0), "the ionosphere flag " \
+        "changed no code phase"
+    out["fs=5MHz iono off"] = _short_gate(
+        "fs=5MHz iono off", _kernel_iq(dp5o), _precise_iq(dp5o, "cuda"))
+    dp10 = plan4(rin, 10e6)
+    dps = split_plan(dp10, sc.MAX_BLOCK_SAMPLES)
+    k = dps.n_blocks // dp10.n_blocks
+    assert k == 2 and dps.block_samples == 500_000, (k, dps.block_samples)
+    ks = _kernel_iq(dps)
+    out["fs=10MHz split"] = _short_gate("fs=10MHz split", ks,
+                                        _precise_iq(dps, "cuda"))
+    whole = ks.reshape(dp10.n_blocks, k * dps.block_samples,
+                       2)[:, :dp10.block_samples]
+    out["fs=10MHz vs unsplit"] = _short_gate(
+        "fs=10MHz vs unsplit precise", whole, _precise_iq(dp10, "cuda"))
+    _phase("long_run 5/10 MHz kernel vs precise", t0, "; ".join(
+        f"{name} exact {g['exact']:.8%} max err {g['max_err']}"
+        for name, g in out.items()))
+    return out
+
+
+def phase_long_run(scen) -> dict:
+    """The JAX package's long-run device gates on the card: the rollover
+    through the K=8 path, the hour soak with its resume splice, dynamic
+    motion, and the 5/10 MHz precise gates.  Raises on any failure."""
+    return {"rollover": _long_rollover(scen), "soak": _long_soak(scen),
+            "motion": _long_motion(scen), "rates": _long_rates(scen)}
 
 
 def _scattered_receivers(b: int):
@@ -744,7 +1150,6 @@ def phase_mc_full(scen) -> tuple[int, int, dict]:
 MESH_RANKS = 4
 MESH_SYN_BLOCKS = 8          # the patch-carrying synthetic plan
 MESH_MC_B, MESH_MC_BLOCKS = 4, 30
-BOUNDARY_GAIN = 0.9086419713826426   # 405*g straddles an integer in f32
 
 
 def mesh_rank(rank: int, world: int, out_dir: str, device: str,
@@ -1097,6 +1502,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     t_all = time.perf_counter()
+    from pluto_gps_sim_tpu_torch.ops import synth_cuda as sc
 
     card = _card_line()
     print(f"[card] {card}", flush=True)
@@ -1107,6 +1513,10 @@ def main() -> int:
     launches, rtf = phase_main_path()
     phase_file(scen)
     golden = phase_golden(scen)
+    sc.reset_launch_count()
+    long_run = phase_long_run(scen)
+    long_launches = sc.launch_count()
+    assert long_launches > 0, "the long-run gates never launched the kernel"
     phase_mc_held(scen)
     mc_launches, mc_err, mc = phase_mc_full(scen)
     mesh_launches, mesh = phase_mesh()
@@ -1118,10 +1528,10 @@ def main() -> int:
         "name": "synth_blocks", "route": "cuda",
         "source": "pluto_gps_sim_tpu_torch/ops/csrc/synth_blocks.cu",
         "replaces": "pluto_gps_sim_tpu/ops/synth_pallas.py:194",
-        "paths": ["stream", "montecarlo", "mesh"],
-        "path_launches": {"stream": launches, "montecarlo": mc_launches,
-                          "mesh": mesh_launches},
-        "launches": launches + mc_launches + mesh_launches,
+        "paths": ["stream", "long_run", "montecarlo", "mesh"],
+        "path_launches": {"stream": launches, "long_run": long_launches,
+                          "montecarlo": mc_launches, "mesh": mesh_launches},
+        "launches": launches + long_launches + mc_launches + mesh_launches,
         "max_abs_err": max(max_err, mc_err,
                            mesh["kernel_vs_twin_max_abs_err"]),
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
@@ -1130,7 +1540,8 @@ def main() -> int:
     (OUT_DIR / "result.json").write_text(json.dumps(
         {**kernels, "card": card, "timing": timing, "k1_sass": k1,
          "realtime_factor": rtf,
-         "golden": golden, "montecarlo": mc, "mesh": mesh,
+         "golden": golden, "long_run": long_run, "montecarlo": mc,
+         "mesh": mesh,
          "receiver": receiver, "realtime_wall_s": realtime_wall,
          "wall_s": time.perf_counter() - t_all}, indent=1))
     _phase("all", t_all)

@@ -41,8 +41,8 @@ import tempfile
 import time
 
 __all__ = ["run_multiprocess_dryrun", "dryrun_multichip", "spawn_world",
-           "rank_device", "single_device", "worker_body", "multichip_body",
-           "OK_TAG", "MULTICHIP_TAG"]
+           "rank_device", "check_world_device", "single_device",
+           "worker_body", "multichip_body", "OK_TAG", "MULTICHIP_TAG"]
 
 OK_TAG = "MULTIPROC_DRYRUN OK"
 MULTICHIP_TAG = "dryrun_multichip OK"
@@ -202,7 +202,7 @@ def _group_arrays(plans):
             sf_map), dps[0].block_samples
 
 
-def worker_body(pid: int, nproc: int, device: str = "cpu") -> None:
+def worker_body(pid: int, nproc: int, device: str) -> None:
     """One rank of run_multiprocess_dryrun (runs after the process group
     is up; see _STUB)."""
     import numpy as np
@@ -249,7 +249,7 @@ def worker_body(pid: int, nproc: int, device: str = "cpu") -> None:
           f"mesh bit-exact", flush=True)
 
 
-def multichip_body(pid: int, nproc: int, device: str = "cpu") -> None:
+def multichip_body(pid: int, nproc: int, device: str) -> None:
     """One rank of dryrun_multichip: a synthetic group and a real
     scheduler group at 16,384 samples through the default mesh."""
     from ..runtime.scheduler import Scheduler
@@ -279,8 +279,22 @@ def multichip_body(pid: int, nproc: int, device: str = "cpu") -> None:
           f"bit-for-bit", flush=True)
 
 
+def check_world_device(device: str, n: int) -> None:
+    """Raise before any rank is spawned unless every rank of an n-rank
+    world can open `device` (see run_multiprocess_dryrun): "cuda" needs
+    a card torch can see, "cuda:rank" one card per rank."""
+    from ..ops.synth_torch import resolve_device
+    resolve_device(rank_device(device, 0))
+    if device == "cuda:rank":
+        import torch
+        if torch.cuda.device_count() < n:
+            raise RuntimeError(f"device 'cuda:rank' needs {n} CUDA devices, "
+                               f"torch sees {torch.cuda.device_count()}")
+
+
 def _run_tagged(n: int, backend: str, body: str, device: str,
                 timeout: float, tags: list[str]) -> str:
+    check_world_device(device, n)
     outs = spawn_world(n, backend, f"{__package__}.multiproc_dryrun:{body}",
                        (device,), timeout)
     for rank, out in enumerate(outs):
@@ -292,20 +306,21 @@ def _run_tagged(n: int, backend: str, body: str, device: str,
 
 
 def run_multiprocess_dryrun(n_processes: int = 4, backend: str = "gloo",
-                            device: str = "cpu",
+                            device: str = "cuda",
                             timeout: float = 300.0) -> str:
     """Spawn the worker_body ranks; returns their combined output.
 
-    device: "cpu", "cuda" (every rank on the current card: gloo only,
-    since NCCL refuses two ranks on one card) or "cuda:rank" (rank r on
-    card r).  Raises on any failure (non-zero exit, a missing tag, the
-    timeout)."""
+    device: "cuda" (the default: every rank on the current card, gloo
+    only, since NCCL refuses two ranks on one card), "cuda:rank" (rank r
+    on card r) or "cpu".  Raises on any failure (a device the ranks
+    cannot open, checked before anything is spawned; a non-zero exit; a
+    missing tag; the timeout)."""
     return _run_tagged(n_processes, backend, "worker_body", device, timeout,
                        [OK_TAG + ": process {rank}/{n},"])
 
 
 def dryrun_multichip(n_devices: int = 4, backend: str = "gloo",
-                     device: str = "cpu", timeout: float = 300.0) -> str:
+                     device: str = "cuda", timeout: float = 300.0) -> str:
     """Spawn the multichip_body ranks (devices as for
     run_multiprocess_dryrun); returns their combined output."""
     return _run_tagged(n_devices, backend, "multichip_body", device,
@@ -313,7 +328,17 @@ def dryrun_multichip(n_devices: int = 4, backend: str = "gloo",
                                  MULTICHIP_TAG + ": rank {rank}/{n} real"])
 
 
+def main(argv: list[str] | None = None) -> None:
+    """python -m pluto_gps_sim_tpu_torch.parallel.multiproc_dryrun [N]
+    [--device cuda|cpu]: the whole coordinator + workers check over gloo,
+    on the card unless asked otherwise."""
+    import argparse
+    p = argparse.ArgumentParser(description=main.__doc__)
+    p.add_argument("n", nargs="?", type=int, default=4)
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    a = p.parse_args(argv)
+    print(run_multiprocess_dryrun(a.n, device=a.device))
+
+
 if __name__ == "__main__":
-    # direct invocation runs the whole coordinator+workers check
-    n = int(sys.argv[1]) if len(sys.argv) > 1 else 4
-    print(run_multiprocess_dryrun(n))
+    main()
