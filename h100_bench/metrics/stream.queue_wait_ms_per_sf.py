@@ -1,0 +1,18 @@
+"""runtime/stream: ms the consumer waits in the stream's queue for the
+planner thread to hand it a dispatched group (stream.queue_wait), per
+superframe received (host clock; the program's own spans,
+runtime/trace, that start in the window).  High when the host planner
+sets the pace."""
+
+
+def read(run):
+    try:
+        from pluto_gps_sim_tpu_torch.runtime import trace
+    except ImportError:          # a program that records no spans
+        return None
+    spans = trace.spans(run.t0, run.t1)
+    waits = [s for s in spans if s.name == "stream.queue_wait"]
+    n = sum(s.n for s in waits)
+    if n <= 0:
+        return None
+    return sum(s.t1 - s.t0 for s in waits) / n * 1e3

@@ -41,7 +41,8 @@ The option surface is the JAX package's (pluto_gps_sim_tpu/cli.py).  Its
 --mode auto|pallas|tiled|precise becomes --mode kernel|tiled|precise
 (default kernel: the CUDA synthesis kernel, or its plain PyTorch twin on
 the CPU) beside --device cuda|cpu (default cuda); nothing picks a path
-or a device silently.  --profile writes a torch.profiler Chrome trace.
+or a device silently.  --profile writes a torch.profiler Chrome trace
+that also holds the program's spans (runtime/trace).
 """
 
 from __future__ import annotations
@@ -359,12 +360,15 @@ def main(argv: list[str] | None = None) -> int:
 
     profiler = None
     if args.profile:
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, profile, record_function
         activities = [ProfilerActivity.CPU]
         if stream.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         profiler = profile(activities=activities)
         profiler.__enter__()
+        # ties the program's perf_counter spans to the profiler's clock
+        with record_function(_PROFILE_MARK):
+            mark_s = time.perf_counter()
 
     stop = {"flag": False}
 
@@ -420,6 +424,7 @@ def main(argv: list[str] | None = None) -> int:
             os.makedirs(args.profile, exist_ok=True)
             trace = os.path.join(args.profile, "trace.json")
             profiler.export_chrome_trace(trace)
+            _add_program_spans(trace, mark_s)
             print(f"Profiler trace written to {trace}", file=sys.stderr)
         for s, h in old_handlers.items():
             signal.signal(s, h)
@@ -447,6 +452,38 @@ def main(argv: list[str] | None = None) -> int:
         stats["blocks"] = produced
         print(f"sink stats: {json.dumps(stats)}", file=sys.stderr)
     return 0
+
+
+_PROFILE_MARK = "pluto_gps_sim_tpu_torch.mark"
+
+
+def _add_program_spans(path: str, mark_s: float) -> None:
+    """Add the program's spans that started since mark_s to the Chrome
+    trace at path, as "X" events on the profiler's clock: the marker
+    event _PROFILE_MARK was recorded as perf_counter() read mark_s."""
+    from .runtime import trace
+    with open(path) as fp:
+        doc = json.load(fp)
+    events = doc["traceEvents"]
+    mark_us = next(e["ts"] for e in events
+                   if e.get("name") == _PROFILE_MARK)
+    pid = os.getpid()
+    tids: dict = {}
+    for s in trace.spans(mark_s):
+        if s.thread not in tids:
+            # a named track per thread, above any OS thread id
+            tids[s.thread] = tid = (1 << 30) + len(tids)
+            events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                           "tid": tid,
+                           "args": {"name": f"program spans: {s.thread}"}})
+        events.append({
+            "ph": "X", "cat": "program", "name": s.name, "pid": pid,
+            "tid": tids[s.thread], "ts": mark_us + (s.t0 - mark_s) * 1e6,
+            "dur": (s.t1 - s.t0) * 1e6,
+            "args": {"req": s.req, "parent": s.parent, "n": s.n,
+                     "cpu_s": s.cpu, "bytes": s.bytes}})
+    with open(path, "w") as fp:
+        json.dump(doc, fp)
 
 
 def _selfcheck(path: str, fs: float, planned: list[int]) -> bool:

@@ -49,6 +49,7 @@ from ..ops import synth_cuda as sc
 from ..ops.epoch import (solve_ranges, solve_ranges_batch,
                          solve_ranges_batch_lean)
 from ..ops.synth_torch import pack_plan, resolve_device
+from ..runtime import trace
 from ..runtime.scheduler import Scheduler, _gather_eph
 from ..runtime.stream import device_view, launch_blocks
 
@@ -92,7 +93,7 @@ class MonteCarloBatch:
                       nav_cache=self.nav_cache, alloc_precomp=pre[b])
             for b in range(self.B)]
         self.block_samples = self.scheds[0].block_samples
-        self.control_seconds = 0.0   # cumulative host control-plane time
+        self.control_seconds = 0.0   # cumulative plan_blocks seconds
         self.patch_dropped = 0       # this batch's dropped gain-trunc patches
 
     def _alloc_precomp(self, eph, grx: GpsTime, rx: np.ndarray):
@@ -130,7 +131,19 @@ class MonteCarloBatch:
         eph-set run chunk instead of one per superframe.  satpos inside
         the batched solve is receiver-independent and computed once per
         epoch grid (compute_range broadcasts it against the B axis)."""
-        t_start = time.time()
+        t_start = time.perf_counter()
+        rec = trace.recorder("batch")
+        top = None if rec is None else \
+            rec.span("mc.plan_blocks", n=1.0).open(t_start)
+        try:
+            return self._plan_blocks(int(n_blocks))
+        finally:
+            t_end = time.perf_counter()
+            self.control_seconds += t_end - t_start
+            if top is not None:
+                top.close(t_end)
+
+    def _plan_blocks(self, n_blocks: int):
         ca_tabs, sf_map = [], []
         per_b = [[] for _ in range(self.B)]
 
@@ -138,7 +151,7 @@ class MonteCarloBatch:
         # lockstep, so receiver 0's simulate_spans (the one copy of the
         # span/boundary/rollover protocol) covers the whole batch
         s0 = self.scheds[0]
-        spans = s0.simulate_spans(total_blocks=int(n_blocks))
+        spans = s0.simulate_spans(total_blocks=n_blocks)
 
         i = 0
         while i < len(spans):
@@ -168,10 +181,11 @@ class MonteCarloBatch:
                     [s.state.sv_idx for s in self.scheds]))
                 eph_u = _gather_eph(eph, union)
                 off0 = spans[k][0] - jblk0
-                rho_b = solve_ranges_batch_lean(
-                    eph_u, self.rin.ionoutc, g_secs[off0:],
-                    rx[:, off0:])
-                rho_b = {kk: np.asarray(v) for kk, v in rho_b.items()}
+                with trace.child("mc.solve"):
+                    rho_b = solve_ranges_batch_lean(
+                        eph_u, self.rin.ionoutc, g_secs[off0:],
+                        rx[:, off0:])
+                    rho_b = {kk: np.asarray(v) for kk, v in rho_b.items()}
                 while k <= j:
                     # per-span slot->union column maps (re-allocation at
                     # a boundary inside the chunk may move slots WITHIN
@@ -190,51 +204,53 @@ class MonteCarloBatch:
                     # c:2774-2790)
                     pre = None
                     if boundary:
-                        pre = self._alloc_precomp(
-                            self.rin.eph[post], t_end,
-                            rx[:, jb - jblk0 + M])
-                    for b, sched in enumerate(self.scheds):
-                        rho = {kk: v[b, off:off + M + 1][:, idx[b]]
-                               for kk, v in rho_b.items()}
-                        plan = sched.plan(
-                            M, rho=rho, rho_in_slots=True,
-                            alloc_precomp=None if pre is None
-                            else pre[b])
-                        assert plan.n_blocks == M, \
-                            "schedulers lost clock sync"
-                        per_b[b].append(plan)
+                        with trace.child("mc.solve"):
+                            pre = self._alloc_precomp(
+                                self.rin.eph[post], t_end,
+                                rx[:, jb - jblk0 + M])
+                    with trace.child("mc.plan"):
+                        for b, sched in enumerate(self.scheds):
+                            rho = {kk: v[b, off:off + M + 1][:, idx[b]]
+                                   for kk, v in rho_b.items()}
+                            plan = sched.plan(
+                                M, rho=rho, rho_in_slots=True,
+                                alloc_precomp=None if pre is None
+                                else pre[b])
+                            assert plan.n_blocks == M, \
+                                "schedulers lost clock sync"
+                            per_b[b].append(plan)
                     k += 1
             i = j + 1
-        # C/A tables dedupe by chip-table bytes: receivers near each
-        # other see the same satellites, so B=256 plans typically share
-        # a handful of distinct tables — sf_map rows point straight at
-        # the deduped slot (the kernel reads tables through sf_map, so
-        # the output is bit-identical; the ~1.2 s/256-table bit-pack
-        # pass and its H2D bytes collapse with it)
-        ca_seen: dict = {}
-        dps_all = []
-        for b in range(self.B):
-            for plan in per_b[b]:
-                dp = pack_plan(plan, tables=False)  # kernel builds LUTs
-                dps_all.append(dp)
-                key = dp.ca2.tobytes()
-                idx = ca_seen.get(key)
-                if idx is None:
-                    idx = ca_seen[key] = len(ca_tabs)
-                    ca_tabs.append(dp.ca2)
-                sf_map.append(np.full(plan.n_blocks, idx, np.int32))
-        # one batched parameter build over all B receivers' plans
-        # (bit-identical to per-plan builds + concat; per-op numpy
-        # overhead amortizes over B x n_superframes segments)
-        bp = sc.build_group_params(dps_all)
-        self.patch_dropped += bp.patch_dropped
-        prmi, prmf = bp.prmi, bp.prmf
-        sf_map = np.concatenate(sf_map)
-        # the deduped list as it is: the CUDA kernel takes any table
-        # count, so the JAX package's power-of-two padding (a fixed
-        # Mosaic compile shape) has no counterpart here
-        ca2 = sc.pack_ca_tables(ca_tabs)
-        self.control_seconds += time.time() - t_start
+        with trace.child("mc.build"):
+            # C/A tables dedupe by chip-table bytes: receivers near each
+            # other see the same satellites, so B=256 plans typically share
+            # a handful of distinct tables — sf_map rows point straight at
+            # the deduped slot (the kernel reads tables through sf_map, so
+            # the output is bit-identical; the ~1.2 s/256-table bit-pack
+            # pass and its H2D bytes collapse with it)
+            ca_seen: dict = {}
+            dps_all = []
+            for b in range(self.B):
+                for plan in per_b[b]:
+                    dp = pack_plan(plan, tables=False)  # kernel builds LUTs
+                    dps_all.append(dp)
+                    key = dp.ca2.tobytes()
+                    idx = ca_seen.get(key)
+                    if idx is None:
+                        idx = ca_seen[key] = len(ca_tabs)
+                        ca_tabs.append(dp.ca2)
+                    sf_map.append(np.full(plan.n_blocks, idx, np.int32))
+            # one batched parameter build over all B receivers' plans
+            # (bit-identical to per-plan builds + concat; per-op numpy
+            # overhead amortizes over B x n_superframes segments)
+            bp = sc.build_group_params(dps_all)
+            self.patch_dropped += bp.patch_dropped
+            prmi, prmf = bp.prmi, bp.prmf
+            sf_map = np.concatenate(sf_map)
+            # the deduped list as it is: the CUDA kernel takes any table
+            # count, so the JAX package's power-of-two padding (a fixed
+            # Mosaic compile shape) has no counterpart here
+            ca2 = sc.pack_ca_tables(ca_tabs)
         return prmi, prmf, ca2, sf_map
 
     def superframes(self, n_blocks: int, device,

@@ -40,6 +40,7 @@ from ..models.gpstime import GpsTime, inc_gps_time, inc_gps_time_grid
 from ..ops.epoch import solve_ranges_lean, solve_superframe
 from ..types import IonoUtc
 from . import scenario as scenario_mod
+from . import trace
 from .allocator import ChannelState, allocate_channels
 
 __all__ = ["SuperframePlan", "Scheduler"]
@@ -322,7 +323,9 @@ class Scheduler:
                 g_secs, g_weeks, rx = self._grid_arrays(ks)
                 sv_idx = self.state.sv_idx.copy()
                 eph_sub = _gather_eph(self.rin.eph[spans[i][2]], sv_idx)
-                rho = solve_ranges_lean(eph_sub, self.ionoutc, g_secs, rx)
+                with trace.child("scheduler.solve"):
+                    rho = solve_ranges_lean(eph_sub, self.ionoutc, g_secs,
+                                            rx)
                 while k <= j:
                     if not np.array_equal(self.state.sv_idx, sv_idx):
                         break      # slots changed mid-run: re-solve rest

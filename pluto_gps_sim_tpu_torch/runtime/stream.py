@@ -19,6 +19,7 @@ from __future__ import annotations
 import collections
 import queue as _queue
 import threading
+import time
 from typing import Iterator, NamedTuple
 
 import numpy as np
@@ -30,9 +31,12 @@ from ..ops import synth_cuda as sc
 from ..ops.synth_torch import (pack_plan, resolve_device,
                                split_plan, synth_superframe_precise_async,
                                synth_superframe_tiled_async)
+from . import trace
 from .scheduler import Scheduler
 
 __all__ = ["IqStream"]
+
+SF_BLOCKS = 300          # 0.1 s blocks in a 30 s superframe
 
 # synthesis paths: the CUDA kernel (its plain twin on the CPU, None here),
 # and the tiled and f64 precise tensor paths of ops.synth_torch
@@ -88,7 +92,10 @@ def launch_blocks(arrays, block_samples: int, device: torch.device,
     if cuda_stream is None:
         return sc.synth_blocks(*args, block_samples), None
     sc.check_sf_map(sf_map, ca_tabs.shape[0])
-    args = [a.pin_memory().to(device, non_blocking=True) for a in args]
+    with trace.child("transfer.pin_alloc",
+                     nbytes=sum(a.nbytes for a in args)):
+        args = [a.pin_memory() for a in args]
+    args = [a.to(device, non_blocking=True) for a in args]
     out = sc.synth_blocks(*args, block_samples)
     return _to_host_async(out, cuda_stream, to_host)
 
@@ -97,7 +104,9 @@ def _to_host_async(out: torch.Tensor, cuda_stream, to_host: bool):
     """(out, event) after an optional D2H of out into a fresh pinned
     host tensor, both on cuda_stream; the consumer owns the buffer."""
     if to_host:
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        with trace.child("transfer.pin_alloc", nbytes=out.nbytes):
+            host = torch.empty(out.shape, dtype=out.dtype,
+                               pin_memory=True)
         host.copy_(out, non_blocking=True)
         out = host
     done = torch.cuda.Event()
@@ -155,6 +164,12 @@ class IqStream:
                  superframes_per_dispatch: int = 1,
                  n_hosts: int = 1, host_id: int = 0,
                  mesh=None):
+        t_init = time.perf_counter()
+        # spans of this stream: "stream <serial>", its dispatch groups
+        # "stream <serial> / group <i>", i counted over its iterations
+        self._serial = trace.serial()
+        self._groups = 0
+        rec = trace.recorder("stream", self._serial)
         if mode not in MODES:
             raise ValueError(f"unknown synthesis mode {mode!r}")
         if mesh is not None and mode != "kernel":
@@ -200,6 +215,8 @@ class IqStream:
         # every superframe of a dispatch group usually shares ONE
         # table and the bit-pack pass collapses to dict hits
         self._ca_cache: dict = {}
+        if rec is not None:
+            rec.span("stream.init").open(t_init).close()
 
     @staticmethod
     def dispatch_ramp(k: int) -> Iterator[int]:
@@ -246,6 +263,8 @@ class IqStream:
         scenario block extrapolating past the block end; host-fetch
         consumers get the reassembled [M, N, 2] either way.
         """
+        # handed to the planner thread, which cannot ask the profiler
+        rec = trace.recorder("stream", self._serial)
         if self.n_hosts > 1:
             if n_blocks_total is None:
                 raise ValueError(
@@ -303,25 +322,32 @@ class IqStream:
                 with lock:
                     unyielded.append(self._state_snapshot())
                 k = next(ramp)
-                if self.superframes_per_dispatch > 1:
-                    plans = self.sched.plan_group(
-                        k, max_blocks, total_blocks=rem)
-                else:
-                    todo = max_blocks if rem is None else \
-                        min(rem, max_blocks)
-                    plan = self.sched.plan(todo)
-                    plans = [] if plan is None else [plan]
+                g = self._groups
+                self._groups += 1
+                with trace.span(rec, "stream.plan", g, cpu=True) as sp:
+                    if self.superframes_per_dispatch > 1:
+                        plans = self.sched.plan_group(
+                            k, max_blocks, total_blocks=rem)
+                    else:
+                        todo = max_blocks if rem is None else \
+                            min(rem, max_blocks)
+                        plan = self.sched.plan(todo)
+                        plans = [] if plan is None else [plan]
+                    blocks = sum(p.n_blocks for p in plans)
+                    sp.n = n_sf = blocks / SF_BLOCKS
                 if not plans:
                     with lock:
                         unyielded.pop()
                     break
                 if rem is not None:
-                    rem -= sum(p.n_blocks for p in plans)
-                group = self._prepare_group(plans)     # host-only work
+                    rem -= blocks
+                with trace.span(rec, "stream.prepare", g, n_sf, cpu=True):
+                    group = self._prepare_group(plans)  # host-only work
                 after = self._state_snapshot()
-                handle = self._dispatch(group, cuda_stream, as_device)
+                with trace.span(rec, "stream.dispatch", g, n_sf, cpu=True):
+                    handle = self._dispatch(group, cuda_stream, as_device)
                 dispatched += 1
-                _put(("ok", handle, after))
+                _put(("ok", handle, after, g, n_sf))
 
         def _planner() -> None:
             try:
@@ -347,15 +373,24 @@ class IqStream:
         t.start()
         try:
             while True:
-                item = q.get()
+                with trace.span(rec, "stream.queue_wait") as wait:
+                    item = q.get()
+                    if item is not None and item[0] == "ok":
+                        wait.group, wait.n = item[3], item[4]
                 if item is None:
                     return
                 if item[0] == "err":
                     raise item[1]
                 taken += 1
-                _, handle, snap_after = item
-                out = (self._device_view(handle) if as_device
-                       else self._finish(handle))
+                _, handle, snap_after, g, n_sf = item
+                if as_device:
+                    out = self._device_view(handle)
+                else:
+                    with trace.span(rec, "transfer.event_wait", g, n_sf):
+                        if handle.done is not None:
+                            handle.done.synchronize()
+                    with trace.span(rec, "stream.unpack", g, n_sf):
+                        out = self._finish(handle)
                 with lock:
                     unyielded.popleft()
                 self._yield_snap = snap_after
@@ -457,8 +492,7 @@ class IqStream:
         return device_view(handle.out, handle.done, self.device)
 
     def _finish(self, handle: _Handle) -> np.ndarray:
-        if handle.done is not None:
-            handle.done.synchronize()
+        """Host int16 IQ [M, N, 2] of a handle whose copy has landed."""
         g = handle.group
         if self._synth is not None:
             return handle.out.numpy()

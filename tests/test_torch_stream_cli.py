@@ -256,8 +256,11 @@ def _ported_case(name, tmp_path, monkeypatch, request):
     monkeypatch.chdir(tmp_path)
 
     def traced(err):
+        # the profiler's events and the program's spans, in one file
         with open(tmp_path / "prof" / "trace.json") as fp:
-            return "traceEvents" in json.load(fp)
+            events = json.load(fp)["traceEvents"]
+        return any(e.get("ph") == "X" and e.get("name") == "stream.plan"
+                   for e in events)
     return [], traced
 
 
@@ -269,7 +272,8 @@ def test_cli_ported_options_run(tmp_path, fixture_paths, capsys,
                                 monkeypatch, request, flags):
     """Each option the JAX CLI has runs in the port (rc 0) and has its
     effect: FTP fetch, native pacing, UDP datagrams, the IIO sink (by
-    --sink, -U or -N), the selfcheck verdict, a Chrome trace."""
+    --sink, -U or -N), the selfcheck verdict, a Chrome trace holding the
+    program's spans."""
     name = flags[0] if flags[0] != "--sink" else " ".join(flags)
     extra, check = _ported_case(name, tmp_path, monkeypatch, request)
     rc = t_cli.main(["-e", fixture_paths["rinex2"], "-d", "0.1",
