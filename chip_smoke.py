@@ -49,8 +49,12 @@ exits non-zero):
      IqStream(mode="kernel") on the card word for word;
   7. Monte-Carlo, full width: B=256 receivers within +-2 km of Tokyo x
      300 blocks at 2.6 MHz (76,800 rows), chunks of 3,000 rows consumed
-     on the card by an int64 sum; the first chunk equals the twin run on
-     the card; 0 patch words dropped;
+     on the card by an int64 sum; the planes built on the card by one
+     build_params launch; the first chunk equals the twin run on the
+     card; 0 patch words dropped; then the batch's planes from
+     build_params equal the host build byte for byte for three draws of
+     the receivers, with the kernel's time beside its bytes bound, the
+     host build's time and the card build's host part;
   8. mesh: 4 gloo ranks (one process each) on this card run the
      parallel/{mesh,shard} path (mesh_rank): a 12-channel nudge=False
      plan with patch words in two channel shards, 8 x 260,000, over 1x4
@@ -1097,8 +1101,8 @@ def phase_mc_full(scen) -> tuple[int, int, dict]:
     planned = {}
     plan_blocks = mc.plan_blocks
 
-    def keep_plan(n):
-        planned["args"] = plan_blocks(n)
+    def keep_plan(n, device=None):
+        planned["args"] = plan_blocks(n, device=device)
         return planned["args"]
     mc.plan_blocks = keep_plan
 
@@ -1122,11 +1126,14 @@ def phase_mc_full(scen) -> tuple[int, int, dict]:
     n_rows = MC_B * TIMED_BLOCKS
     assert rows == n_rows, (rows, n_rows)
     assert launches > 0, "the Monte-Carlo path never launched the kernel"
+    build_launches = sc.build_params_launch_count()
+    assert build_launches == 1, \
+        f"the batch's planes took {build_launches} build_params launches"
     assert mc.patch_dropped == 0, mc.patch_dropped
     assert total != 0, "all-zero Monte-Carlo output"
 
     prmi, prmf, ca2, sf_map = planned["args"]
-    args = [torch.from_numpy(a[:MC_CHUNK] if a is not ca2 else a).to("cuda")
+    args = [torch.as_tensor(a[:MC_CHUNK] if a is not ca2 else a).to("cuda")
             for a in (prmi, prmf, ca2, sf_map)]
     twin = sc.synth_blocks_plain(*args, mc.block_samples)
     bad = int((twin != first).sum())
@@ -1144,7 +1151,110 @@ def phase_mc_full(scen) -> tuple[int, int, dict]:
     return launches, err, {"init_s": init_s,
                            "control_s": mc.control_seconds,
                            "device_consume_s": dev_s,
-                           "aggregate_gsps": gsps}
+                           "aggregate_gsps": gsps,
+                           "build_params_launches": build_launches}
+
+
+BUILD_SEEDS = (0, 1, 2)     # receiver draws of the full-width batch
+
+
+def _plane_diff(got, want: np.ndarray) -> tuple[int, float]:
+    """(words whose bits differ, their largest |got - want|) of a plane
+    built on the card against the host build's."""
+    import torch
+    w = torch.from_numpy(want).to(got.device)
+    diff = got.view(torch.int32) != w.view(torch.int32)
+    bad = int(diff.sum())
+    if not bad:
+        return 0, 0.0
+    return bad, float((got.double() - w.double()).abs()[diff].max())
+
+
+def phase_build_params(scen) -> dict:
+    """The full-width batch's parameter planes (B=256 x 300 blocks, 76,800
+    rows) built on the card by build_params against the host build
+    (pack_plan + build_group_params), byte for byte, for three draws of
+    the receivers; the kernel timed with CUDA events beside its bytes
+    bound, and the host build and the card build's host part (mc.build:
+    gather, dedupe, checks, pinned staging, launch) timed on the host
+    clock.  Counts its own build_params launches."""
+    import numpy as np
+    import torch
+
+    from pluto_gps_sim_tpu_torch.ops import synth_cuda as sc
+    from pluto_gps_sim_tpu_torch.ops.synth_torch import pack_plan
+    from pluto_gps_sim_tpu_torch.parallel import MonteCarloBatch
+    from pluto_gps_sim_tpu_torch.ops import cuda_build
+    t0 = time.perf_counter()
+    cuda_build.load_kernel("build_params")
+    log = cuda_build.build_logs.get("build_params", "(loaded from cache)")
+    (OUT_DIR / "nvcc_build_params.log").write_text(log)
+    _phase("build build_params.cu", t0, "; ".join(
+        ln.strip() for ln in log.splitlines()
+        if "registers" in ln or "spill" in ln))
+    rin, g0, ieph, xyz0 = scen
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    host_s, card_host_s, dropped = [], [], []
+    bad, err = 0, 0.0
+    launched = {}
+    launch = sc._launch_build_params
+
+    def keep_launch(*args):
+        launched["args"] = args
+        return launch(*args)
+    torch.cuda.synchronize()
+    sc.reset_launch_count()
+    sc._launch_build_params = keep_launch
+    try:
+        for seed in BUILD_SEEDS:
+            xyz = xyz0[None, :] + np.random.RandomState(seed).uniform(
+                -2000.0, 2000.0, (MC_B, 3))
+            mc = MonteCarloBatch(rin, g0, ieph, xyz, fs=FS)
+            plans = mc._plan_blocks(TIMED_BLOCKS)
+            t1 = time.perf_counter()
+            want = sc.build_group_params([pack_plan(p, tables=False)
+                                          for p in plans])
+            host_s.append(time.perf_counter() - t1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            prmi, prmf, _, _ = mc._build(plans, dev)
+            card_host_s.append(time.perf_counter() - t1)
+            for got, plane in ((prmi, want.prmi), (prmf, want.prmf)):
+                b, e = _plane_diff(got, plane)
+                bad, err = bad + b, max(err, e)
+            if bad:
+                raise AssertionError(
+                    f"build_params differs from the host build in {bad} "
+                    f"words, max abs err {err} (receivers seed {seed})")
+            dropped.append(mc.patch_dropped)
+            if dropped[-1] != want.patch_dropped:
+                raise AssertionError(f"patch_dropped {dropped[-1]} against "
+                                     f"the host build's "
+                                     f"{want.patch_dropped}")
+    finally:
+        sc._launch_build_params = launch
+    args = launched["args"]
+    ms = _time_ms(lambda: launch(*args), reps=20)
+    launches = sc.build_params_launch_count()
+    fields, nav, bits_map, _ = args
+    m = bits_map.shape[0]
+    nbytes = (sum(t.nbytes for t in fields[:3]) + nav.nbytes
+              + bits_map.nbytes + m * 2 * 256 * 4)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    _phase(f"build_params B={MC_B} x {TIMED_BLOCKS} blocks ({m} rows)", t0,
+           f"== host build at {len(BUILD_SEEDS)} receiver draws "
+           f"({bad} words differ, max abs err {err}); {launches} launches; "
+           f"kernel {ms:.4f} ms, bytes bound {bound_ms:.4f} ms "
+           f"({nbytes / 1e6:.1f} MB, {bound_ms / ms:.1%}); host build "
+           f"{min(host_s):.3f}-{max(host_s):.3f} s; card build's host part "
+           f"{min(card_host_s):.4f}-{max(card_host_s):.4f} s; patch_dropped "
+           f"{dropped}")
+    return {"ms": ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "bytes": nbytes, "rows": m, "host_build_s": host_s,
+            "card_build_host_s": card_host_s, "patch_dropped": dropped,
+            "launches": launches, "mismatched_words": bad,
+            "max_abs_err": err}
 
 
 MESH_RANKS = 4
@@ -1519,6 +1629,7 @@ def main() -> int:
     assert long_launches > 0, "the long-run gates never launched the kernel"
     phase_mc_held(scen)
     mc_launches, mc_err, mc = phase_mc_full(scen)
+    build = phase_build_params(scen)
     mesh_launches, mesh = phase_mesh()
     receiver = phase_receiver(scen)
     realtime_wall = phase_io()
@@ -1536,11 +1647,21 @@ def main() -> int:
                            mesh["kernel_vs_twin_max_abs_err"]),
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+        "library_ms": None}, {
+        "name": "build_params", "route": "cuda",
+        "source": "pluto_gps_sim_tpu_torch/ops/csrc/build_params.cu",
+        "replaces": None, "paths": ["montecarlo"],
+        "path_launches": {"montecarlo": mc["build_params_launches"]},
+        "launches": mc["build_params_launches"] + build["launches"],
+        "max_abs_err": build["max_abs_err"],
+        "ms": build["ms"], "plain_ms": min(build["host_build_s"]) * 1e3,
+        "bound_ms": build["bound_ms"], "bound_by": "bytes",
         "library_ms": None}]}
     (OUT_DIR / "result.json").write_text(json.dumps(
         {**kernels, "card": card, "timing": timing, "k1_sass": k1,
          "realtime_factor": rtf,
          "golden": golden, "long_run": long_run, "montecarlo": mc,
+         "build_params": build,
          "mesh": mesh,
          "receiver": receiver, "realtime_wall_s": realtime_wall,
          "wall_s": time.perf_counter() - t_all}, indent=1))

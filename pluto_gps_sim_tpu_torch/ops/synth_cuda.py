@@ -48,6 +48,11 @@ kernel.
 ``synth_blocks`` launches the CUDA kernel for CUDA tensors and runs
 ``synth_blocks_plain`` — the same integer and f32 op sequence in torch,
 emulating uint32 with int64 — only for tensors on the CPU.
+
+``build_params`` makes the planes of many plans' rows on the card from
+their raw fields (a second kernel, ``csrc/build_params.cu``, which
+replaces no TPU kernel), bit for bit what ``build_group_params`` makes
+of ``pack_plan(tables=False)``; for CPU tensors it runs that host build.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ import ctypes
 import functools
 import sys
 import threading
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -63,11 +69,13 @@ import torch
 
 from ..constants import CA_SEQ_LEN, MAX_CHAN
 from ..models.tables import COS_TABLE_512, SIN_TABLE_512
+from .synth_torch import pack_plan
 
 __all__ = ["synth_blocks", "synth_blocks_plain", "gain_sign_table_plain",
            "build_block_params", "build_group_params", "pack_ca_tables",
            "unpack_iq", "BlockParams", "MAX_BLOCK_SAMPLES",
-           "MAX_KERNEL_SAMPLES", "launch_count", "reset_launch_count"]
+           "MAX_KERNEL_SAMPLES", "launch_count", "reset_launch_count",
+           "PlanFields", "build_params", "build_params_launch_count"]
 
 # Q24 code-NCO range bound: the per-sample integer residual ramp r24*n
 # (r24 <= 4095) must stay inside int32, so blocks are capped at 524k
@@ -576,25 +584,31 @@ _PLANE = 2 * _LANES
 # ---------------------------------------------------------------------------
 
 _count_lock = threading.Lock()
-_launches = 0
+_launches = {"synth_blocks": 0, "build_params": 0}
 
 
 def launch_count() -> int:
     """CUDA kernel launches made by synth_blocks since the last reset."""
     with _count_lock:
-        return _launches
+        return _launches["synth_blocks"]
+
+
+def build_params_launch_count() -> int:
+    """CUDA kernel launches made by build_params since the last reset."""
+    with _count_lock:
+        return _launches["build_params"]
 
 
 def reset_launch_count() -> None:
-    global _launches
+    """Zero both kernels' launch counts."""
     with _count_lock:
-        _launches = 0
+        for k in _launches:
+            _launches[k] = 0
 
 
-def _count_launch() -> None:
-    global _launches
+def _count_launch(kernel: str = "synth_blocks") -> None:
     with _count_lock:
-        _launches += 1
+        _launches[kernel] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -722,6 +736,219 @@ def synth_blocks(prmi, prmf, ca_tabs, sf_map, block_samples: int,
             f"{lib.synth_blocks_error_string(rc).decode()} (cudaError {rc})")
     _count_launch()
     return out0 if packed else (out0, out1)
+
+
+# ---------------------------------------------------------------------------
+# the parameter planes built on the card (csrc/build_params.cu)
+# ---------------------------------------------------------------------------
+
+class PlanFields(NamedTuple):
+    """The raw per-(row, channel) fields of consecutive SuperframePlans,
+    rows in plan order: what pack_plan(tables=False) reads of a plan
+    besides its tables.  numpy arrays or tensors."""
+
+    active: object   # [M, 12] bool
+    real: object     # [5, M, 12] float64: f_carr, f_code, carr_phase,
+    #                  code_phase, gain
+    ints: object     # [3, M, 12] int32: iword, ibit, icode
+    delt: float      # seconds per sample, shared by every plan
+
+
+_REAL_FIELDS = ("f_carr", "f_code", "carr_phase", "code_phase", "gain")
+_INT_FIELDS = ("iword", "ibit", "icode")
+
+# each magnitude's LUT halves as bits: 1 = cos (I), 2 = sin (Q)
+_MAG_HALF = (_MAG_IN_COS.astype(np.uint8)
+             | (_MAG_IN_SIN.astype(np.uint8) << 1))
+
+
+def _check_plan_fields(fields: PlanFields, bits_tabs, bits_map,
+                       block_samples: int) -> None:
+    """Raise ValueError where pack_plan or build_group_params would refuse
+    the plans the host fields came from, or where bits_map leaves
+    [0, len(bits_tabs)) or a nav-bit index is negative."""
+    act = np.asarray(fields.active)
+    real = np.asarray(fields.real)
+    ints = np.asarray(fields.ints)
+    n_tabs = np.asarray(bits_tabs).shape[0]
+    bits_map = np.asarray(bits_map)
+    if not act.size:
+        return
+    if block_samples > MAX_BLOCK_SAMPLES:
+        raise ValueError("block too long for the Q24 code NCO (needs "
+                         "<=5.24 MHz at 0.1 s blocks)")
+    v = np.abs(np.where(act, real[1] * fields.delt, 0.0))
+    cp0 = np.where(act, real[3], 0.0)
+    span = cp0 + v * block_samples
+    if float(span.max()) * 4096 >= 2**31:
+        raise ValueError("block spans too many chips for the Q12 code NCO")
+    if float(v.max()) > 1.1:
+        raise ValueError("code rate out of range for the kernel's chip "
+                         "arithmetic")
+    if float(np.abs(np.where(act, real[4], 0.0)).max()) > 2.0:
+        raise ValueError("channel gain out of range for the biased packed "
+                         "accumulator")
+    # the exact test, (ic0 + span // 1023) // 20 < 32, is a slow float
+    # floor division: run it only where span / 1023, as a product, comes
+    # within 1 of the limit
+    ic0 = np.where(act, ints[2], 0)
+    near = ic0 + span * (1.0 / CA_SEQ_LEN) >= 32 * 20 - 1
+    if near.any() and int(np.max(
+            (ic0[near] + span[near] // CA_SEQ_LEN) // 20)) >= 32:
+        raise ValueError("nav-bit index exceeds the 32-bit per-block mask")
+    if int(np.where(act, ints[0] * 30 + ints[1], 0).min()) < 0:
+        raise ValueError("negative nav-bit index")
+    if int(bits_map.min()) < 0 or int(bits_map.max()) >= n_tabs:
+        raise ValueError(f"bits_map entries must lie in [0, {n_tabs})")
+
+
+def _build_params_plain(fields: PlanFields, bits_tabs, bits_map,
+                        block_samples: int) -> BlockParams:
+    """build_params' plain version: pack_plan(tables=False) and
+    build_group_params over the rows, one plan per run of rows that
+    share a nav-bit table (the planes do not depend on how rows are
+    grouped into plans)."""
+    cuts = np.flatnonzero(np.diff(bits_map)) + 1
+    dps = []
+    for lo, hi in zip([0, *cuts], [*cuts, len(bits_map)]):
+        rows = slice(int(lo), int(hi))
+        plan = SimpleNamespace(
+            n_blocks=int(hi - lo), block_samples=block_samples,
+            delt=fields.delt, active=fields.active[rows], ca2=None,
+            bits=bits_tabs[bits_map[lo]],
+            **{k: fields.real[j, rows] for j, k in enumerate(_REAL_FIELDS)},
+            **{k: fields.ints[j, rows] for j, k in enumerate(_INT_FIELDS)})
+        dps.append(pack_plan(plan, tables=False))
+    return build_group_params(dps)
+
+
+def _build_args(fields: PlanFields, bits_tabs, bits_map):
+    """build_params' inputs as tensors of one device, their dtypes, shapes
+    and contiguity checked."""
+    act = _as_tensor(fields.active, torch.bool)
+    real = _as_tensor(fields.real, torch.float64)
+    ints = _as_tensor(fields.ints, torch.int32)
+    bits_tabs = _as_tensor(bits_tabs, torch.int8)
+    bits_map = _as_tensor(bits_map, torch.int32)
+    m = act.shape[0]
+    if act.shape != (m, _C) or real.shape != (5, m, _C) \
+            or ints.shape != (3, m, _C):
+        raise ValueError(f"fields must be [M, {_C}], [5, M, {_C}] and "
+                         f"[3, M, {_C}], got {tuple(act.shape)}, "
+                         f"{tuple(real.shape)} and {tuple(ints.shape)}")
+    if bits_tabs.dim() != 3 or bits_tabs.shape[1] != _C \
+            or min(bits_tabs.shape) < 1:
+        raise ValueError(f"bits_tabs must be [NT, {_C}, n_bits], got "
+                         f"{tuple(bits_tabs.shape)}")
+    if bits_map.shape != (m,):
+        raise ValueError(f"bits_map must be [{m}], got "
+                         f"{tuple(bits_map.shape)}")
+    ts = (act, real, ints, bits_tabs, bits_map)
+    if any(t.device != act.device for t in ts):
+        raise ValueError("build_params inputs lie on different devices")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("build_params inputs must be contiguous")
+    return ts
+
+
+_mag_lock = threading.Lock()
+_mag_on: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _mags_on(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    with _mag_lock:
+        t = _mag_on.get(device)
+        if t is None:
+            t = (torch.from_numpy(_MAGS64.copy()).to(device),
+                 torch.from_numpy(_MAG_HALF.copy()).to(device))
+            _mag_on[device] = t
+        return t
+
+
+@functools.cache
+def _params_lib() -> ctypes.CDLL:
+    """The built parameter-plane library with its C signatures declared."""
+    from .cuda_build import load_kernel
+    lib = load_kernel("build_params")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.build_params_launch.argtypes = (
+        [vp] * 3 + [ctypes.c_double] + [vp] * 7 + [ci] * 4 + [vp])
+    lib.build_params_launch.restype = ci
+    lib.build_params_error_string.argtypes = [ci]
+    lib.build_params_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build_params(fields: PlanFields, bits_tabs, bits_map,
+                 block_samples: int, device=None):
+    """The [M, 256] parameter planes of consecutive plans' rows:
+    (prmi int32, prmf float32, dropped int32 [1]), bit for bit
+    build_group_params([pack_plan(p, tables=False) for p in plans]) with
+    nudge=True, and its patch_dropped as a one-element tensor.
+
+    fields: PlanFields; bits_tabs: [NT, 12, n_bits] int8 nav bits (+-1,
+    a plan's `bits`); bits_map: [M] int32 row -> table.  All lie on the
+    host (numpy arrays or CPU tensors) and are checked there: ValueError
+    where the host build refuses them, or where the kernel could not
+    read them.  With no device, or a CPU one, the result is the plain
+    version, the host build, on the CPU.  With a CUDA device the inputs
+    go up (without waiting, from pinned tensors) and the CUDA kernel
+    (csrc/build_params.cu) runs on the device's current stream; nothing
+    is synchronized.  There is no other fallback."""
+    block_samples = int(block_samples)
+    args = _build_args(fields, bits_tabs, bits_map)
+    if args[0].device.type != "cpu":
+        raise ValueError("build_params takes its inputs on the host, where "
+                         "they are checked before they go up")
+    act, real, ints, bits_tabs, bits_map = (t.numpy() for t in args)
+    host = PlanFields(act, real, ints, fields.delt)
+    _check_plan_fields(host, bits_tabs, bits_map, block_samples)
+    dev = torch.device("cpu" if device is None else device)
+    if dev.type == "cpu":
+        bp = _build_params_plain(host, bits_tabs, bits_map, block_samples)
+        return (torch.from_numpy(bp.prmi), torch.from_numpy(bp.prmf),
+                torch.tensor([bp.patch_dropped], dtype=torch.int32))
+    if dev.type != "cuda":
+        raise ValueError(f"build_params runs on cuda or cpu, not {dev}")
+    with torch.cuda.device(dev):
+        act, real, ints, bits_tabs, bits_map = (
+            t.to(dev, non_blocking=True) for t in args)
+        return _launch_build_params(PlanFields(act, real, ints, fields.delt),
+                                    bits_tabs, bits_map, block_samples)
+
+
+def _launch_build_params(fields: PlanFields, bits_tabs, bits_map,
+                         block_samples: int):
+    """build_params' launch on inputs that are already on the card and
+    checked, on the current stream."""
+    act, real, ints, bits_tabs, bits_map = _build_args(fields, bits_tabs,
+                                                       bits_map)
+    dev = act.device
+    if dev.type != "cuda":
+        raise ValueError(f"the build_params kernel runs on cuda, not {dev}")
+    m = act.shape[0]
+    prmi = torch.empty((m, _PLANE), dtype=torch.int32, device=dev)
+    prmf = torch.empty((m, _PLANE), dtype=torch.float32, device=dev)
+    dropped = torch.zeros(1, dtype=torch.int32, device=dev)
+    if m == 0:
+        return prmi, prmf, dropped
+    lib = _params_lib()
+    with torch.cuda.device(dev):
+        mags, half = _mags_on(dev)
+        stream = torch.cuda.current_stream(dev)
+        rc = lib.build_params_launch(
+            act.data_ptr(), real.data_ptr(), ints.data_ptr(),
+            float(fields.delt), bits_tabs.data_ptr(), bits_map.data_ptr(),
+            mags.data_ptr(), half.data_ptr(), prmi.data_ptr(),
+            prmf.data_ptr(), dropped.data_ptr(), m,
+            int(bits_tabs.shape[0]), int(bits_tabs.shape[2]),
+            int(mags.shape[0]), stream.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            "build_params kernel launch failed: "
+            f"{lib.build_params_error_string(rc).decode()} (cudaError {rc})")
+    _count_launch("build_params")
+    return prmi, prmf, dropped
 
 
 # ---------------------------------------------------------------------------

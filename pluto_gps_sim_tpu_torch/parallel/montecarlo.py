@@ -23,7 +23,10 @@ making its own jit round-trips — costs ~3x the kernel time at B=256):
     receiver-independent and computed once;
   * nav-message products are receiver-independent given the shared
     clock, so a shared models.lnav.NavCache collapses per-boundary nav
-    regeneration from 12*B rebuilds to ~12.
+    regeneration from 12*B rebuilds to ~12;
+  * on a card the batch's parameter planes are built there, by one
+    ops.synth_cuda.build_params launch from the plans' raw fields, and
+    the launches slice them in place (no host planes, no pinned copy).
 
 Typical use — receiver swarms, coverage/DOP studies, fuzzing a receiver
 against perturbed trajectories:
@@ -41,6 +44,7 @@ import time
 import numpy as np
 import torch
 
+from ..constants import MAX_CHAN
 from ..ingest.rinex import RinexResult
 from ..models import orbits
 from ..models.gpstime import GpsTime
@@ -54,6 +58,21 @@ from ..runtime.scheduler import Scheduler, _gather_eph
 from ..runtime.stream import device_view, launch_blocks
 
 __all__ = ["MonteCarloBatch"]
+
+
+def _dedupe(tables: list, counts: np.ndarray):
+    """(the distinct tables by bytes, in first-seen order; an [M] int32
+    map of every row to its table, tables[i] covering counts[i] rows)."""
+    seen: dict = {}
+    distinct, idx = [], np.empty(len(tables), np.int32)
+    for i, tab in enumerate(tables):
+        key = tab.tobytes()
+        j = seen.get(key)
+        if j is None:
+            j = seen[key] = len(distinct)
+            distinct.append(tab)
+        idx[i] = j
+    return distinct, np.repeat(idx, counts)
 
 
 class MonteCarloBatch:
@@ -94,7 +113,8 @@ class MonteCarloBatch:
             for b in range(self.B)]
         self.block_samples = self.scheds[0].block_samples
         self.control_seconds = 0.0   # cumulative plan_blocks seconds
-        self.patch_dropped = 0       # this batch's dropped gain-trunc patches
+        self._dropped = 0            # dropped gain-trunc patches, counted
+        self._dropped_dev = []       # ... and still on the card, per launch
 
     def _alloc_precomp(self, eph, grx: GpsTime, rx: np.ndarray):
         """Batched allocation inputs at time grx for all B receivers:
@@ -119,8 +139,26 @@ class MonteCarloBatch:
     # still amortizing the solve over multiple superframes per call
     _SOLVE_CHUNK_EPOCHS = 1024
 
-    def plan_blocks(self, n_blocks: int):
-        """Plan n_blocks for every trajectory; returns kernel-ready args.
+    @property
+    def patch_dropped(self) -> int:
+        """Gain-trunc patch words dropped to the slot cap, over every
+        plan_blocks call so far.  Card builds count on the card; reading
+        this waits for them."""
+        if self._dropped_dev:
+            torch.cuda.synchronize(self._dropped_dev[0].device)
+            self._dropped += sum(int(t) for t in self._dropped_dev)
+            self._dropped_dev.clear()
+        return self._dropped
+
+    def plan_blocks(self, n_blocks: int, device=None):
+        """Plan n_blocks for every trajectory; returns kernel-ready args
+        (prmi, prmf, ca2, sf_map).
+
+        With no device, or a CPU one, they are host numpy arrays.  With
+        a CUDA device the parameter planes are built on the card by
+        ops.synth_cuda.build_params from the plans' raw fields, staged
+        through pinned memory, and all four are device tensors, enqueued
+        on the current stream and not synchronized.
 
         All trajectories share the scenario clock, so their superframe
         boundaries align and every plan() round covers the same block
@@ -136,15 +174,17 @@ class MonteCarloBatch:
         top = None if rec is None else \
             rec.span("mc.plan_blocks", n=1.0).open(t_start)
         try:
-            return self._plan_blocks(int(n_blocks))
+            dev = None if device is None else resolve_device(device)
+            plans = self._plan_blocks(int(n_blocks))
+            with trace.child("mc.build"):
+                return self._build(plans, dev)
         finally:
             t_end = time.perf_counter()
             self.control_seconds += t_end - t_start
             if top is not None:
                 top.close(t_end)
 
-    def _plan_blocks(self, n_blocks: int):
-        ca_tabs, sf_map = [], []
+    def _plan_blocks(self, n_blocks: int) -> list:
         per_b = [[] for _ in range(self.B)]
 
         # shared-clock span pre-simulation: every scheduler advances in
@@ -221,36 +261,56 @@ class MonteCarloBatch:
                             per_b[b].append(plan)
                     k += 1
             i = j + 1
-        with trace.child("mc.build"):
-            # C/A tables dedupe by chip-table bytes: receivers near each
-            # other see the same satellites, so B=256 plans typically share
-            # a handful of distinct tables — sf_map rows point straight at
-            # the deduped slot (the kernel reads tables through sf_map, so
-            # the output is bit-identical; the ~1.2 s/256-table bit-pack
-            # pass and its H2D bytes collapse with it)
-            ca_seen: dict = {}
-            dps_all = []
-            for b in range(self.B):
-                for plan in per_b[b]:
-                    dp = pack_plan(plan, tables=False)  # kernel builds LUTs
-                    dps_all.append(dp)
-                    key = dp.ca2.tobytes()
-                    idx = ca_seen.get(key)
-                    if idx is None:
-                        idx = ca_seen[key] = len(ca_tabs)
-                        ca_tabs.append(dp.ca2)
-                    sf_map.append(np.full(plan.n_blocks, idx, np.int32))
-            # one batched parameter build over all B receivers' plans
-            # (bit-identical to per-plan builds + concat; per-op numpy
-            # overhead amortizes over B x n_superframes segments)
-            bp = sc.build_group_params(dps_all)
-            self.patch_dropped += bp.patch_dropped
-            prmi, prmf = bp.prmi, bp.prmf
-            sf_map = np.concatenate(sf_map)
-            # the deduped list as it is: the CUDA kernel takes any table
-            # count, so the JAX package's power-of-two padding (a fixed
-            # Mosaic compile shape) has no counterpart here
-            ca2 = sc.pack_ca_tables(ca_tabs)
+        # receiver-major rows: receiver b's plans, then receiver b+1's
+        return [p for plans in per_b for p in plans]
+
+    def _build(self, plans: list, dev):
+        """mc.build: the kernel inputs of a batch's plans.
+
+        C/A tables dedupe by chip-table bytes: receivers near each other
+        see the same satellites, so B=256 plans typically share a handful
+        of distinct tables, and sf_map rows point straight at the
+        deduped slot (the kernel reads tables through sf_map, so the
+        output is bit-identical).  On the host the parameter planes are
+        one batched build_group_params over every plan (bit-identical to
+        per-plan builds + concat; per-op numpy overhead amortizes over
+        B x n_superframes segments).  For a card the plans' raw fields
+        are concatenated into pinned arrays, their nav-bit tables deduped
+        the same way, and ops.synth_cuda.build_params builds the planes
+        there in one launch."""
+        counts = np.array([p.n_blocks for p in plans])
+        ca_tabs, sf_map = _dedupe([p.ca2 for p in plans], counts)
+        # the deduped list as it is: the CUDA kernel takes any table
+        # count, so the JAX package's power-of-two padding (a fixed
+        # Mosaic compile shape) has no counterpart here
+        ca2 = sc.pack_ca_tables(ca_tabs)
+        if dev is None or dev.type == "cpu":
+            bp = sc.build_group_params([pack_plan(p, tables=False)
+                                        for p in plans])
+            self._dropped += bp.patch_dropped
+            return bp.prmi, bp.prmf, ca2, sf_map
+        m = int(counts.sum())
+        fields = sc.PlanFields(
+            torch.empty((m, MAX_CHAN), dtype=torch.bool, pin_memory=True),
+            torch.empty((5, m, MAX_CHAN), dtype=torch.float64,
+                        pin_memory=True),
+            torch.empty((3, m, MAX_CHAN), dtype=torch.int32,
+                        pin_memory=True),
+            self.scheds[0].delt)            # one fs for every receiver
+        np.concatenate([p.active for p in plans], out=fields.active.numpy())
+        for planes, names in ((fields.real, sc._REAL_FIELDS),
+                              (fields.ints, sc._INT_FIELDS)):
+            for k, name in enumerate(names):
+                np.concatenate([getattr(p, name) for p in plans],
+                               out=planes[k].numpy())
+        nav_tabs, bits_map = _dedupe([p.bits for p in plans], counts)
+        sc.check_sf_map(sf_map, ca2.shape[0])
+        prmi, prmf, dropped = sc.build_params(
+            fields, np.stack(nav_tabs), bits_map, self.block_samples,
+            device=dev)
+        self._dropped_dev.append(dropped)
+        ca2, sf_map = (torch.from_numpy(a).to(dev, non_blocking=True)
+                       for a in (ca2, sf_map))
         return prmi, prmf, ca2, sf_map
 
     def superframes(self, n_blocks: int, device,
@@ -286,10 +346,18 @@ class MonteCarloBatch:
             dev = check_mesh_device(mesh, device)
         else:
             dev = resolve_device(device)
-        prmi, prmf, ca2, sf_map = self.plan_blocks(n_blocks)
         total = self.B * n_blocks
         n = self.block_samples
         cuda_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        if cuda_stream is None or mesh is not None:
+            # a mesh shards host arrays (parallel.shard.launch_on_mesh)
+            prmi, prmf, ca2, sf_map = self.plan_blocks(n_blocks)
+        else:
+            # planes built on the card, on the batch's stream; launches
+            # slice them there
+            with torch.cuda.device(dev), torch.cuda.stream(cuda_stream):
+                prmi, prmf, ca2, sf_map = self.plan_blocks(n_blocks,
+                                                           device=dev)
 
         def launch(lo, hi):
             arrays = (prmi[lo:hi], prmf[lo:hi], ca2, sf_map[lo:hi])

@@ -70,9 +70,10 @@ def launch_blocks(arrays, block_samples: int, device: torch.device,
     (out, done).
 
     On the CPU the twin runs here and done is None.  On CUDA the planes
-    go up from pinned staging copies, the kernel runs, and (to_host)
-    its packed output comes back into a fresh pinned host tensor, all
-    enqueued on cuda_stream; done is the event recorded after them, so
+    go up from pinned staging copies (unless they are device tensors
+    already), the kernel runs, and (to_host) its packed output comes
+    back into a fresh pinned host tensor, all enqueued on cuda_stream;
+    done is the event recorded after them, so
     the caller returns at once and the next launch overlaps this one's
     copy.  With a mesh (parallel.mesh) the launch runs sharded through
     parallel.shard.launch_on_mesh, whose collectives block the calling
@@ -87,6 +88,11 @@ def launch_blocks(arrays, block_samples: int, device: torch.device,
         # the words back on the card
         return _to_host_async(out.to(device), cuda_stream, to_host)
     prmi, prmf, ca_tabs, sf_map = arrays
+    if isinstance(prmi, torch.Tensor):
+        # inputs already on the card (MonteCarloBatch.plan_blocks with a
+        # device), their sf_map checked before it went up
+        out = sc.synth_blocks(prmi, prmf, ca_tabs, sf_map, block_samples)
+        return _to_host_async(out, cuda_stream, to_host)
     args = [torch.from_numpy(np.ascontiguousarray(a))
             for a in (prmi, prmf, ca_tabs, sf_map)]
     if cuda_stream is None:

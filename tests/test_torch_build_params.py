@@ -1,0 +1,286 @@
+"""The parameter planes of a Monte-Carlo batch, built by
+ops.synth_cuda.build_params, against the host build.
+
+CPU tests: MonteCarloBatch.plan_blocks(n) and plan_blocks(n,
+device="cpu") return the planes, C/A tables and sf_map of the host build
+(one pack_plan(tables=False) per plan, the C/A tables deduped by bytes,
+one build_group_params) byte for byte, across a 30 s boundary and through
+the union re-solve branch; the wrapper's plain version equals
+build_group_params on plans forced through the gain nudge, patch words
+and the slot overflow; and the wrapper refuses what the host build
+refuses.
+
+Tests marked `cuda` hold the CUDA kernel to the host build byte for byte
+on a card and skip elsewhere.  Run them on a machine with a CUDA card and
+nvcc from the repository root (this file imports no JAX, so the suite's
+conftest can be left out):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_build_params.py
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+from fixtures import ensure_fixtures
+
+from pluto_gps_sim_tpu_torch.constants import MAX_CHAN, R2D
+from pluto_gps_sim_tpu_torch.ingest import read_rinex2
+from pluto_gps_sim_tpu_torch.models.cacode import CA_TABLE
+from pluto_gps_sim_tpu_torch.models.geodesy import llh2xyz
+from pluto_gps_sim_tpu_torch.models.gpstime import inc_gps_time
+from pluto_gps_sim_tpu_torch.ops import synth_cuda as sc
+from pluto_gps_sim_tpu_torch.ops.synth_torch import pack_plan
+from pluto_gps_sim_tpu_torch.parallel import MonteCarloBatch
+from pluto_gps_sim_tpu_torch.runtime import scenario as scen
+from pluto_gps_sim_tpu_torch.runtime.scheduler import SuperframePlan
+
+FS = 1_000_000.0
+BS = 16_384
+
+# gains whose f32 products straddle the f64 truncs (synth_cuda._SLOT_I):
+# ~17/31 - 3e-9 is cleared by nudging the lane one ulp down; the double
+# nearest 0.7 keeps one mismatching magnitude on every lane tried (a
+# patch word); the double nearest 6/11 keeps ten, more words than a
+# row's seven slots hold
+NUDGED, PATCHED, OVERFLOWED = 0.5483870934593348, 0.7, 6 / 11
+
+
+@pytest.fixture(scope="module")
+def scenario():
+    rin = read_rinex2(ensure_fixtures()["rinex2"])
+    g0 = scen.setup_scenario(rin, None)
+    return rin, g0, scen.select_ephemeris_set(rin, g0)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _receivers(b: int, seed: int = 5) -> np.ndarray:
+    """B receivers scattered ~km around Tokyo."""
+    rng = np.random.RandomState(seed)
+    base = np.array([35.681298 / R2D, 139.766247 / R2D, 10.0])
+    return np.stack([np.asarray(llh2xyz(base + np.array(
+        [rng.uniform(-1e-4, 1e-4), rng.uniform(-1e-4, 1e-4),
+         rng.uniform(0, 100)]))) for _ in range(b)])
+
+
+def _host_build(plans):
+    """The batch's kernel inputs as the host build makes them."""
+    dps = [pack_plan(p, tables=False) for p in plans]
+    seen, ca_tabs, sf_map = {}, [], []
+    for dp in dps:
+        idx = seen.setdefault(dp.ca2.tobytes(), len(seen))
+        if idx == len(ca_tabs):
+            ca_tabs.append(dp.ca2)
+        sf_map.append(np.full(dp.n_blocks, idx, np.int32))
+    bp = sc.build_group_params(dps)
+    return (bp.prmi, bp.prmf, sc.pack_ca_tables(ca_tabs),
+            np.concatenate(sf_map)), bp.patch_dropped
+
+
+def _assert_args_equal(got, want):
+    for name, g, w in zip(("prmi", "prmf", "ca2", "sf_map"), got, want):
+        g = g.cpu().numpy() if isinstance(g, torch.Tensor) else g
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert g.tobytes() == w.tobytes(), name
+
+
+def _forced_plan(gains, seed: int, n_blocks: int = 3):
+    """A synthetic plan whose active channels carry `gains` (one per
+    channel, every block), the rest inactive."""
+    C = MAX_CHAN
+    rng = np.random.RandomState(seed)
+    n_act = len(gains)
+    active = np.zeros((n_blocks, C), bool)
+    active[:, :n_act] = True
+    f_carr = np.where(active, rng.uniform(-4000, 4000, (n_blocks, C)), 0.0)
+    gain = np.zeros((n_blocks, C))
+    gain[:, :n_act] = gains
+    return SuperframePlan(
+        n_blocks=n_blocks, block_samples=65536, delt=1.0 / 2_600_000.0,
+        prn=np.where(active[0], np.arange(1, C + 1), 0).astype(np.int32),
+        ca2=(CA_TABLE[np.arange(C)] * 2 - 1).astype(np.int8),
+        bits=rng.choice([-1, 1], (C, 1800)).astype(np.int8),
+        active=active, f_carr=f_carr, f_code=1_023_000.0 + f_carr / 1540.0,
+        code_phase=rng.uniform(0, 1023, (n_blocks, C)),
+        icode=rng.randint(0, 20, (n_blocks, C)).astype(np.int32),
+        ibit=rng.randint(0, 30, (n_blocks, C)).astype(np.int32),
+        iword=rng.randint(0, 10, (n_blocks, C)).astype(np.int32),
+        carr_phase=rng.uniform(0, 1, (n_blocks, C)),
+        gain=gain, azel=np.zeros((n_blocks, C, 2)))
+
+
+# nudged, patched and overflowing channels, alone and mixed in one row
+FORCED = [_forced_plan([NUDGED, 0.5, 0.5], 1),
+          _forced_plan([0.5, PATCHED, 0.61], 2),
+          _forced_plan([OVERFLOWED, 0.5], 3),
+          _forced_plan([PATCHED, NUDGED, OVERFLOWED, PATCHED, 0.9], 4, 5)]
+
+
+def _fields(plans):
+    """build_params' inputs for plans, nav tables one per plan."""
+    act = np.concatenate([p.active for p in plans])
+    real = np.stack([np.concatenate([getattr(p, k) for p in plans])
+                     for k in sc._REAL_FIELDS])
+    ints = np.stack([np.concatenate([getattr(p, k) for p in plans])
+                     for k in sc._INT_FIELDS])
+    bits = np.stack([p.bits for p in plans])
+    bits_map = np.repeat(np.arange(len(plans), dtype=np.int32),
+                         [p.n_blocks for p in plans])
+    return (sc.PlanFields(act, real, ints.astype(np.int32), plans[0].delt),
+            bits, bits_map)
+
+
+@pytest.mark.parametrize("case", ["boundary", "union"])
+def test_plan_blocks_on_cpu_equals_host_build(scenario, case):
+    """plan_blocks(n) and plan_blocks(n, device="cpu") both return the
+    host build's planes, tables and sf_map, and its dropped count: B=3
+    over 8 blocks from 0.4 s before a 30 s boundary (two plans a
+    receiver), and B=2 over 40 superframes, whose boundary re-allocations
+    fire the union re-solve (test_torch_montecarlo)."""
+    rin, g0, ieph = scenario
+    if case == "boundary":
+        rem = (30.0 - (g0.sec % 30.0)) % 30.0
+        g0, b, n_blocks = inc_gps_time(g0, rem + 30.0 - 0.4), 3, 8
+    else:
+        b, n_blocks = 2, 40 * 300
+    xyz = _receivers(b)
+    mcs = [MonteCarloBatch(rin, g0, ieph, xyz, fs=FS, block_samples=BS)
+           for _ in range(3)]
+    plans = mcs[0]._plan_blocks(n_blocks)
+    if case == "boundary":
+        assert len(plans) == 2 * b, "the batch does not straddle"
+    want, dropped = _host_build(plans)
+    _assert_args_equal(mcs[1].plan_blocks(n_blocks), want)
+    _assert_args_equal(mcs[2].plan_blocks(n_blocks, device="cpu"), want)
+    assert mcs[1].patch_dropped == mcs[2].patch_dropped == dropped
+
+
+def test_build_params_plain_forced_plans():
+    """The wrapper's plain version equals build_group_params on plans
+    forced through the nudge, patch words and the slot overflow, and
+    counts the same dropped words."""
+    fields, bits, bits_map = _fields(FORCED)
+    prmi, prmf, dropped = sc.build_params(fields, bits, bits_map, 65536)
+    want = sc.build_group_params([pack_plan(p, tables=False)
+                                  for p in FORCED])
+    assert prmi.numpy().tobytes() == want.prmi.tobytes()
+    assert prmf.numpy().tobytes() == want.prmf.tobytes()
+    assert int(dropped) == want.patch_dropped > 0
+    words = want.prmf[:, [sc.patch_word_lane(k) for k in range(7)]]
+    assert (words != 0).any(), "no patch word: the patch path is untested"
+    nudged = want.prmf[0, sc._F_GAIN]
+    assert nudged != np.float32(NUDGED), "the nudge never moved a lane"
+
+
+def _bad(field: str):
+    fields, bits, bits_map = _fields([_forced_plan([0.5, 0.6], 7)])
+    real, ints = fields.real.copy(), fields.ints.copy()
+    if field == "code_rate":
+        real[1, 0, 0] = 1.2 / fields.delt
+    elif field == "gain":
+        real[4, 1, 1] = -2.5
+    elif field == "nav_index":
+        ints[2, 2, 0] = 700
+    elif field == "q12":
+        real[3, 0, 1] = 2**31 / 4096
+    elif field == "negative_bit":
+        ints[0, 0, 0], ints[1, 0, 0] = 0, -1
+    else:
+        bits_map = bits_map + 1
+    return fields._replace(real=real, ints=ints), bits, bits_map
+
+
+@pytest.mark.parametrize("field,match", [
+    ("code_rate", "code rate"), ("gain", "channel gain"),
+    ("nav_index", "nav-bit index exceeds"), ("q12", "Q12 code NCO"),
+    ("negative_bit", "negative nav-bit index"), ("bits_map", "bits_map")])
+def test_build_params_refusals(field, match):
+    """The host build's refusals (|v| <= 1.1, |gain| <= 2, the nav-bit
+    index < 32, pack_plan's Q12 guard), plus a nav table or bit index
+    the kernel could not read, raise ValueError from the host checks,
+    which build_params runs for every device before anything goes up
+    (so a CUDA device raises here without a card)."""
+    fields, bits, bits_map = _bad(field)
+    with pytest.raises(ValueError, match=match):
+        sc._check_plan_fields(fields, bits, bits_map, 65536)
+    for device in (None, "cpu", "cuda"):
+        with pytest.raises(ValueError, match=match):
+            sc.build_params(fields, bits, bits_map, 65536, device=device)
+
+
+def test_build_params_rejects_bad_shapes():
+    fields, bits, bits_map = _fields(FORCED[:1])
+    with pytest.raises(ValueError, match="bits_map must be"):
+        sc.build_params(fields, bits, bits_map[1:], 65536)
+    with pytest.raises(ValueError, match="bits_tabs must be"):
+        sc.build_params(fields, bits[:, :5], bits_map, 65536)
+    with pytest.raises(TypeError):
+        sc.build_params(fields._replace(ints=fields.ints.astype(np.int64)),
+                        bits, bits_map, 65536)
+
+
+def test_build_params_takes_host_inputs():
+    """Fields already on a device are refused (they could not be checked
+    without reading them back), and so is a device that is neither the
+    CPU nor a card."""
+    fields, bits, bits_map = _fields(FORCED[:1])
+    meta = fields._replace(**{k: torch.from_numpy(getattr(fields, k))
+                              .to("meta") for k in ("active", "real",
+                                                    "ints")})
+    with pytest.raises(ValueError, match="on the host"):
+        sc.build_params(meta, torch.from_numpy(bits).to("meta"),
+                        torch.from_numpy(bits_map).to("meta"), 65536)
+    with pytest.raises(ValueError, match="lie on different devices"):
+        sc.build_params(meta, bits, bits_map, 65536)
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        sc.build_params(fields, bits, bits_map, 65536, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# on a card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_kernel_equals_host_build_on_batch(scenario, cuda):
+    """A B=64 batch over 8 blocks across a 30 s boundary: the card build's
+    planes, tables and sf_map equal the host build's byte for byte, one
+    build_params launch a plan_blocks call, the same dropped count."""
+    rin, g0, ieph = scenario
+    rem = (30.0 - (g0.sec % 30.0)) % 30.0
+    g0 = inc_gps_time(g0, rem + 30.0 - 0.4)
+    xyz = _receivers(64, seed=11)
+    host = MonteCarloBatch(rin, g0, ieph, xyz, fs=2.6e6)
+    card = MonteCarloBatch(rin, g0, ieph, xyz, fs=2.6e6)
+    sc.reset_launch_count()
+    for _ in range(2):
+        want = host.plan_blocks(8)
+        got = card.plan_blocks(8, device=cuda)
+        assert all(t.device.type == "cuda" for t in got)
+        _assert_args_equal(got, want)
+    assert sc.build_params_launch_count() == 2
+    assert card.patch_dropped == host.patch_dropped
+
+
+@pytest.mark.cuda
+def test_kernel_equals_host_build_forced(cuda):
+    """Plans forced through the nudge, patch words and a row that
+    overflows its 7 slots: the kernel's planes equal build_group_params'
+    byte for byte and it counts the same dropped words."""
+    fields, bits, bits_map = _fields(FORCED)
+    sc.reset_launch_count()
+    prmi, prmf, dropped = sc.build_params(fields, bits, bits_map, 65536,
+                                          device=cuda)
+    assert prmi.device.type == prmf.device.type == "cuda"
+    assert sc.build_params_launch_count() == 1
+    want = sc.build_group_params([pack_plan(p, tables=False)
+                                  for p in FORCED])
+    assert prmi.cpu().numpy().tobytes() == want.prmi.tobytes()
+    assert prmf.cpu().numpy().tobytes() == want.prmf.tobytes()
+    assert int(dropped) == want.patch_dropped > 0
