@@ -350,8 +350,10 @@ class IqStream:
                 with trace.span(rec, "stream.prepare", g, n_sf, cpu=True):
                     group = self._prepare_group(plans)  # host-only work
                 after = self._state_snapshot()
-                with trace.span(rec, "stream.dispatch", g, n_sf, cpu=True):
+                with trace.span(rec, "stream.dispatch", g, n_sf,
+                                cpu=True) as sp:
                     handle = self._dispatch(group, cuda_stream, as_device)
+                    sp.rows = blocks * self.split_k
                 dispatched += 1
                 _put(("ok", handle, after, g, n_sf))
 
@@ -445,7 +447,9 @@ class IqStream:
         if self._synth is not None:
             return _Group(tuple(dps), n_orig, n_orig)
         if self.split_k > 1:
-            dps = [split_plan(dp, sc.MAX_BLOCK_SAMPLES) for dp in dps]
+            with trace.child("packing.split",
+                             n=sum(dp.n_blocks for dp in dps) / SF_BLOCKS):
+                dps = [split_plan(dp, sc.MAX_BLOCK_SAMPLES) for dp in dps]
         # one batched build for the whole group (bit-identical to
         # per-plan builds + concat)
         bp = sc.build_group_params(dps)
@@ -506,7 +510,8 @@ class IqStream:
         if self.split_k > 1:
             # reassemble sub-blocks into scenario blocks; the last
             # sub-block of each row extrapolated past the true block
-            # end (split_plan), so trim K*sub -> N
+            # end (split_plan), so trim K*sub -> N.  Both are views of
+            # the unpacked rows: nothing is copied
             k = self.split_k
             iq = iq.reshape(iq.shape[0] // k, k * iq.shape[1], 2)
             iq = iq[:, :g.n_orig]

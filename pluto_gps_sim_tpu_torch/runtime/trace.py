@@ -14,8 +14,9 @@ one marker event recorded beside a ``perf_counter()`` reading; the
 thread it ran on and the span that enclosed it there (``parent``); the
 unit of work that spans on different threads share (``req``: "stream
 <n> / group <i>", "batch <n>"); the superframes or batches it covered
-(``n``); and, where asked, the thread's CPU seconds over it (``cpu``) or
-the bytes it allocated (``bytes``).
+(``n``); and, where asked, the thread's CPU seconds over it (``cpu``),
+the bytes it allocated (``bytes``) or the kernel rows it launched
+(``rows``: a dispatch group's sub-blocks where its blocks are split).
 
 Spans live in memory, in one process-wide list of at most ``CAP``;
 ``dropped()`` counts those past the cap, and ``spans(t0, t1)`` returns
@@ -47,6 +48,7 @@ class Span(NamedTuple):
     n: float                # superframes or batches covered
     cpu: float | None       # the thread's CPU seconds over the span
     bytes: int              # bytes allocated
+    rows: int = 0           # kernel rows launched
 
 
 class _Local(threading.local):
@@ -88,15 +90,16 @@ def _add(s: Span) -> None:
 
 class _Open:
     """A span being recorded: a context manager, or open()/close() where
-    the caller reads the clock itself.  group, n and bytes may be set
-    until it closes."""
+    the caller reads the clock itself.  group, n, bytes and rows may be
+    set until it closes."""
 
-    __slots__ = ("name", "base", "group", "n", "bytes", "cpu", "t0", "_c0")
+    __slots__ = ("name", "base", "group", "n", "bytes", "rows", "cpu", "t0",
+                 "_c0")
 
     def __init__(self, name: str, base: str, group=None, n: float = 0.0,
                  nbytes: int = 0, cpu: bool = False):
         self.name, self.base, self.group = name, base, group
-        self.n, self.bytes, self.cpu = n, nbytes, cpu
+        self.n, self.bytes, self.rows, self.cpu = n, nbytes, 0, cpu
 
     def open(self, t0: float | None = None) -> _Open:
         _local.stack.append(self)
@@ -114,7 +117,7 @@ class _Open:
             f"{self.base} / group {self.group}"
         _add(Span(self.name, self.t0, t1, threading.current_thread().name,
                   stack[-1].name if stack else None, req, float(self.n),
-                  cpu, int(self.bytes)))
+                  cpu, int(self.bytes), int(self.rows)))
 
     def __enter__(self) -> _Open:
         return self.open()
@@ -126,7 +129,7 @@ class _Open:
 class _Off:
     """The span of a site that records nothing."""
 
-    __slots__ = ("group", "n", "bytes")
+    __slots__ = ("group", "n", "bytes", "rows")
 
     def __enter__(self) -> _Off:
         return self
@@ -169,11 +172,11 @@ def span(rec: Recorder | None, name: str, group=None, n: float = 0.0,
     return rec.span(name, group, n, cpu)
 
 
-def child(name: str, nbytes: int = 0):
+def child(name: str, nbytes: int = 0, n: float = 0.0):
     """A span inside the thread's innermost open span, of its unit of
     work; one that records nothing where the thread has no open span."""
     stack = _local.stack
     if not stack:
         return OFF
     top = stack[-1]
-    return _Open(name, top.base, top.group, nbytes=nbytes)
+    return _Open(name, top.base, top.group, n, nbytes)

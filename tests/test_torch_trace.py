@@ -3,7 +3,8 @@
 It records only while a torch.profiler records the thread that starts
 the work, hands its recorder to the stream's planner thread, and leaves
 the output byte for byte as it is untraced.  Runs are the CPU twin at
-1 MHz: a K=2 IqStream of 7 blocks in plans of at most 3, and a B=3
+1 MHz: a K=2 IqStream of 7 blocks in plans of at most 3 (its blocks
+also split into 3 sub-rows under a lowered kernel range), and a B=3
 MonteCarloBatch of 3 blocks.  transfer.pin_alloc is recorded only on a
 card (pinned staging and output buffers); the benchmark's traced runs
 read it there.
@@ -151,6 +152,39 @@ def test_batch_parts_fall_inside_plan_blocks(scenario):
         assert s.parent == "mc.plan_blocks" and s.req == top.req
         assert top.t0 <= s.t0 <= s.t1 <= top.t1
     assert sum(s.t1 - s.t0 for s in parts) <= top.t1 - top.t0
+
+
+def test_unsplit_dispatch_counts_a_row_a_block(scenario):
+    _, spans = _traced(_stream, scenario)
+    assert not [s for s in spans if s.name == "packing.split"]
+    dispatch = [s for s in spans if s.name == "stream.dispatch"]
+    assert [s.rows for s in dispatch] == \
+        [round(s.n * SF_BLOCKS) for s in dispatch]
+    assert sum(s.rows for s in dispatch) == BLOCKS
+    assert all(s.rows == 0 for s in spans if s.name != "stream.dispatch")
+
+
+def test_split_stream_spans_and_rows(scenario, monkeypatch):
+    """Blocks past a lowered kernel range (1 MHz blocks of 100,000
+    samples, range 40,000: 3 sub-rows a block): packing.split inside
+    stream.prepare covers every superframe split, and each group's
+    stream.dispatch carries its sub-rows, 3 a block; untraced, nothing."""
+    from pluto_gps_sim_tpu_torch.ops import synth_cuda as sc
+    monkeypatch.setattr(sc, "MAX_BLOCK_SAMPLES", 40_000)
+    t0 = time.perf_counter()
+    plain = _stream(scenario)
+    assert trace.spans(t0, time.perf_counter()) == []
+    iq, spans = _traced(_stream, scenario)
+    assert np.array_equal(iq, plain)
+    _nested(spans)
+    split = [s for s in spans if s.name == "packing.split"]
+    assert split and {s.parent for s in split} == {"stream.prepare"}
+    assert {s.thread for s in split} == {"iqstream-planner"}
+    assert sum(s.n for s in split) == pytest.approx(BLOCKS / SF_BLOCKS)
+    dispatch = [s for s in spans if s.name == "stream.dispatch"]
+    assert [s.rows for s in dispatch] == \
+        [3 * round(s.n * SF_BLOCKS) for s in dispatch]
+    assert sum(s.rows for s in dispatch) == 3 * BLOCKS
 
 
 def test_cap_counts_dropped_spans(scenario, monkeypatch):
