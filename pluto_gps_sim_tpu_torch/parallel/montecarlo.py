@@ -26,7 +26,13 @@ making its own jit round-trips — costs ~3x the kernel time at B=256):
     regeneration from 12*B rebuilds to ~12;
   * on a card the batch's parameter planes are built there, by one
     ops.synth_cuda.build_params launch from the plans' raw fields, and
-    the launches slice them in place (no host planes, no pinned copy).
+    the launches slice them in place (no host planes, no pinned copy);
+  * batches asked for back to back are planned one ahead: the
+    second and every later superframes() call in a row with the same
+    n_blocks and device, once its own planes are ready, starts a thread
+    (mc.lookahead) that plans the next batch while this one's kernels
+    run, and the next such call takes its planes.  Any other call first
+    puts the schedulers back as they were before the lookahead.
 
 Typical use — receiver swarms, coverage/DOP studies, fuzzing a receiver
 against perturbed trajectories:
@@ -39,6 +45,7 @@ against perturbed trajectories:
 
 from __future__ import annotations
 
+import threading
 import time
 
 import numpy as np
@@ -73,6 +80,20 @@ def _dedupe(tables: list, counts: np.ndarray):
             distinct.append(tab)
         idx[i] = j
     return distinct, np.repeat(idx, counts)
+
+
+class _Lookahead:
+    """The next batch, planned on a thread of its own: what it plans
+    for, the schedulers' state before it, and what it planned."""
+
+    def __init__(self, key: tuple, serial: int):
+        self.key = key              # (n_blocks, device) it plans for
+        self.serial = serial        # its batch's trace serial number
+        self.thread: threading.Thread | None = None
+        self.snap: list | None = None       # Scheduler.snapshot()s
+        self.planes = None          # plan_blocks' result
+        self.dropped: list = []     # its builds' dropped-patch counts
+        self.error: BaseException | None = None
 
 
 class MonteCarloBatch:
@@ -115,6 +136,11 @@ class MonteCarloBatch:
         self.control_seconds = 0.0   # cumulative plan_blocks seconds
         self._dropped = 0            # dropped gain-trunc patches, counted
         self._dropped_dev = []       # ... and still on the card, per launch
+        self._streams: dict = {}     # the batch's CUDA stream, per device
+        self._last_key = None        # the last superframes() call's key
+        self._lookahead: _Lookahead | None = None
+        self.lookahead_hits = 0      # calls that took a lookahead's planes
+        self.lookahead_misses = 0    # lookaheads discarded
 
     def _alloc_precomp(self, eph, grx: GpsTime, rx: np.ndarray):
         """Batched allocation inputs at time grx for all B receivers:
@@ -142,8 +168,9 @@ class MonteCarloBatch:
     @property
     def patch_dropped(self) -> int:
         """Gain-trunc patch words dropped to the slot cap, over every
-        plan_blocks call so far.  Card builds count on the card; reading
-        this waits for them."""
+        batch planned for a call so far: a lookahead's batch counts once
+        a call takes it, and never while pending or once discarded.
+        Card builds count on the card; reading this waits for them."""
         if self._dropped_dev:
             torch.cuda.synchronize(self._dropped_dev[0].device)
             self._dropped += sum(int(t) for t in self._dropped_dev)
@@ -168,7 +195,16 @@ class MonteCarloBatch:
         one ephemeris set: one solve_ranges_batch_lean call per
         eph-set run chunk instead of one per superframe.  satpos inside
         the batched solve is receiver-independent and computed once per
-        epoch grid (compute_range broadcasts it against the B axis)."""
+        epoch grid (compute_range broadcasts it against the B axis).
+
+        A lookahead that superframes() left pending is joined and
+        discarded first (the schedulers put back as they were before
+        it), since this call plans the batches it planned."""
+        la = self._lookahead
+        ahead = la is not None and la.thread is threading.current_thread()
+        if not ahead:
+            self._settle_lookahead(None)
+            self._last_key = None
         t_start = time.perf_counter()
         rec = trace.recorder("batch")
         top = None if rec is None else \
@@ -177,7 +213,12 @@ class MonteCarloBatch:
             dev = None if device is None else resolve_device(device)
             plans = self._plan_blocks(int(n_blocks))
             with trace.child("mc.build"):
-                return self._build(plans, dev)
+                args, dropped = self._build(plans, dev)
+            if ahead:
+                la.dropped.append(dropped)
+            else:
+                self._count_dropped(dropped)
+            return args
         finally:
             t_end = time.perf_counter()
             self.control_seconds += t_end - t_start
@@ -264,8 +305,15 @@ class MonteCarloBatch:
         # receiver-major rows: receiver b's plans, then receiver b+1's
         return [p for plans in per_b for p in plans]
 
+    def _count_dropped(self, dropped) -> None:
+        if isinstance(dropped, torch.Tensor):
+            self._dropped_dev.append(dropped)
+        else:
+            self._dropped += dropped
+
     def _build(self, plans: list, dev):
-        """mc.build: the kernel inputs of a batch's plans.
+        """mc.build: the kernel inputs of a batch's plans, and the
+        build's dropped-patch count (an int, or a tensor on the card).
 
         C/A tables dedupe by chip-table bytes: receivers near each other
         see the same satellites, so B=256 plans typically share a handful
@@ -287,8 +335,7 @@ class MonteCarloBatch:
         if dev is None or dev.type == "cpu":
             bp = sc.build_group_params([pack_plan(p, tables=False)
                                         for p in plans])
-            self._dropped += bp.patch_dropped
-            return bp.prmi, bp.prmf, ca2, sf_map
+            return (bp.prmi, bp.prmf, ca2, sf_map), bp.patch_dropped
         m = int(counts.sum())
         fields = sc.PlanFields(
             torch.empty((m, MAX_CHAN), dtype=torch.bool, pin_memory=True),
@@ -308,10 +355,67 @@ class MonteCarloBatch:
         prmi, prmf, dropped = sc.build_params(
             fields, np.stack(nav_tabs), bits_map, self.block_samples,
             device=dev)
-        self._dropped_dev.append(dropped)
         ca2, sf_map = (torch.from_numpy(a).to(dev, non_blocking=True)
                        for a in (ca2, sf_map))
-        return prmi, prmf, ca2, sf_map
+        return (prmi, prmf, ca2, sf_map), dropped
+
+    def _stream(self, dev: torch.device):
+        """The batch's CUDA stream on dev: its builds, a lookahead's
+        included, and its launches run there in order."""
+        s = self._streams.get(dev)
+        if s is None:
+            s = self._streams[dev] = torch.cuda.Stream(dev)
+        return s
+
+    def _start_lookahead(self, key: tuple, cuda_stream) -> None:
+        """Plan the next batch of key = (n_blocks, device) on a thread
+        of its own, through self.plan_blocks, recording its spans as
+        the calling thread would (runtime.trace.adopt)."""
+        n_blocks, dev = key
+        la = _Lookahead(key, trace.serial())
+        rec = trace.recorder("batch", la.serial)
+
+        def run() -> None:
+            try:
+                la.snap = [s.snapshot() for s in self.scheds]
+                with trace.adopt(rec), torch.cuda.stream(cuda_stream):
+                    la.planes = self.plan_blocks(n_blocks, device=dev)
+            except BaseException as e:      # raised in the joining call
+                la.error = e
+
+        la.thread = threading.Thread(target=run, name="mc.lookahead",
+                                     daemon=True)
+        self._lookahead = la
+        la.thread.start()
+
+    def _settle_lookahead(self, key):
+        """Join a pending lookahead.  Its planes when it planned for key
+        (a hit); otherwise None, with every scheduler put back as the
+        lookahead found it (a miss).  Its error, if it raised, is raised
+        here, after the schedulers are put back."""
+        la = self._lookahead
+        if la is None:
+            return None
+        rec = trace.recorder("batch", la.serial)
+        with trace.span(rec, "mc.lookahead_wait") as wait:
+            la.thread.join()
+            hit = la.error is None and la.key == key
+            wait.n = float(hit)
+        # cleared only now: until it ends, the thread's plan_blocks finds
+        # itself here
+        self._lookahead = None
+        if hit:
+            self.lookahead_hits += 1
+            for dropped in la.dropped:
+                self._count_dropped(dropped)
+            return la.planes
+        self.lookahead_misses += 1
+        if la.snap is not None:
+            for s, snap in zip(self.scheds, la.snap):
+                s.restore(snap)
+        if la.error is not None:
+            raise la.error
+        return None
 
     def superframes(self, n_blocks: int, device,
                     chunk_blocks: int | None = None,
@@ -340,24 +444,40 @@ class MonteCarloBatch:
         mesh (a parallel.mesh.Mesh) shards the batch over the mesh's
         ranks (parallel.shard), as the JAX package's mesh= does; device
         must name mesh.device.  Mesh runs launch whole (chunk_blocks
-        does not apply), and every rank yields the whole batch."""
+        does not apply), and every rank yields the whole batch.
+
+        Without a mesh, the second and every later call in a row with
+        the same n_blocks and device starts, once its planes are ready
+        and before its first launch, a thread (mc.lookahead) that plans
+        the next batch; the next call with that n_blocks and device
+        takes its planes (lookahead_hits).  Any other call, a mesh call
+        or a direct plan_blocks first joins it and puts the schedulers
+        back as they were (lookahead_misses).  The bytes are the same
+        either way."""
         if mesh is not None:
             from .mesh import check_mesh_device
             dev = check_mesh_device(mesh, device)
+            key = None
         else:
             dev = resolve_device(device)
+            key = (int(n_blocks), dev)
+        repeat = key is not None and key == self._last_key
         total = self.B * n_blocks
         n = self.block_samples
-        cuda_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-        if cuda_stream is None or mesh is not None:
+        cuda_stream = self._stream(dev) if dev.type == "cuda" else None
+        planes = self._settle_lookahead(key)
+        if planes is None and mesh is not None:
             # a mesh shards host arrays (parallel.shard.launch_on_mesh)
-            prmi, prmf, ca2, sf_map = self.plan_blocks(n_blocks)
-        else:
-            # planes built on the card, on the batch's stream; launches
-            # slice them there
-            with torch.cuda.device(dev), torch.cuda.stream(cuda_stream):
-                prmi, prmf, ca2, sf_map = self.plan_blocks(n_blocks,
-                                                           device=dev)
+            planes = self.plan_blocks(n_blocks)
+        elif planes is None:
+            # on a card the planes are built there, on the batch's
+            # stream, and the launches slice them there
+            with torch.cuda.stream(cuda_stream):
+                planes = self.plan_blocks(n_blocks, device=dev)
+        self._last_key = key
+        if repeat:
+            self._start_lookahead(key, cuda_stream)
+        prmi, prmf, ca2, sf_map = planes
 
         def launch(lo, hi):
             arrays = (prmi[lo:hi], prmf[lo:hi], ca2, sf_map[lo:hi])

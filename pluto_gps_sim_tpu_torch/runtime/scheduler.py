@@ -198,6 +198,24 @@ class Scheduler:
             ieph = post
         return spans
 
+    # -- state -------------------------------------------------------------
+
+    def snapshot(self) -> dict:
+        """A copy of everything plan(), plan_group() and skip() change:
+        the block counter, the ephemeris set and every channel-state
+        field (the nav memos, _nav_refresher and a shared NavCache, need
+        none)."""
+        return {"jblk": self.jblk, "ieph": self.ieph,
+                "channel_state": {k: np.copy(v) for k, v in
+                                  vars(self.state).items()}}
+
+    def restore(self, snap: dict) -> None:
+        """Put the state of a snapshot() back."""
+        self.jblk = snap["jblk"]
+        self.ieph = snap["ieph"]
+        for k, v in snap["channel_state"].items():
+            setattr(self.state, k, np.copy(v))
+
     # -- planning ----------------------------------------------------------
 
     def plan(self, max_blocks: int, rho=None, rho_in_slots: bool = False,

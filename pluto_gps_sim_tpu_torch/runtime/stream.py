@@ -326,7 +326,7 @@ class IqStream:
                 if rem is not None and rem <= 0:
                     break
                 with lock:
-                    unyielded.append(self._state_snapshot())
+                    unyielded.append(self.sched.snapshot())
                 k = next(ramp)
                 g = self._groups
                 self._groups += 1
@@ -349,7 +349,7 @@ class IqStream:
                     rem -= blocks
                 with trace.span(rec, "stream.prepare", g, n_sf, cpu=True):
                     group = self._prepare_group(plans)  # host-only work
-                after = self._state_snapshot()
+                after = self.sched.snapshot()
                 with trace.span(rec, "stream.dispatch", g, n_sf,
                                 cpu=True) as sp:
                     handle = self._dispatch(group, cuda_stream, as_device)
@@ -374,7 +374,7 @@ class IqStream:
         # resume point before anything is yielded = the iteration start
         # (snapshot() must not read live scheduler state once the
         # planner owns it)
-        self._yield_snap = self._state_snapshot()
+        self._yield_snap = self.sched.snapshot()
         self._planner_alive = True
         t = threading.Thread(target=_planner, name="iqstream-planner",
                              daemon=True)
@@ -519,14 +519,6 @@ class IqStream:
 
     # -- snapshot / resume ---------------------------------------------------
 
-    def _state_snapshot(self) -> dict:
-        s = self.sched
-        return {
-            "jblk": s.jblk, "ieph": s.ieph,
-            "channel_state": {k: np.copy(v) for k, v in
-                              vars(s.state).items()},
-        }
-
     def snapshot(self) -> dict:
         """Host state capsule; everything device-side is derived.
 
@@ -541,7 +533,7 @@ class IqStream:
             return {"jblk": snap["jblk"], "ieph": snap["ieph"],
                     "channel_state": {k: np.copy(v) for k, v in
                                       snap["channel_state"].items()}}
-        return self._state_snapshot()
+        return self.sched.snapshot()
 
     def restore(self, snap: dict) -> None:
         s = self.sched
@@ -554,8 +546,5 @@ class IqStream:
             raise ValueError(
                 f"snapshot lacks channel-state fields {sorted(missing)} "
                 "(written by an incompatible framework version?)")
-        s.jblk = snap["jblk"]
-        s.ieph = snap["ieph"]
-        for k, v in snap["channel_state"].items():
-            setattr(s.state, k, np.copy(v))
+        s.restore(snap)
         self._yield_snap = None

@@ -5,8 +5,12 @@ An entry call (``IqStream.__init__``, ``IqStream.superframes``,
 torch.profiler is recording that thread (``recorder``), and gets a
 ``Recorder`` or None, which it hands to any thread it starts: the
 profiler's state is thread-local, so a thread the entry call starts
-cannot ask for itself.  Nothing else switches recording on; with it off,
-a span site costs an ``is None`` test and a no-op ``with``.
+cannot ask for itself.  A thread that makes an entry call on behalf of
+the thread that started it (``MonteCarloBatch``'s ``mc.lookahead``
+thread calls ``plan_blocks``) runs it inside ``adopt(rec)``, and
+``recorder`` there returns the handed Recorder.  Nothing else switches
+recording on; with it off, a span site costs an ``is None`` test and a
+no-op ``with``.
 
 A span holds its name; its start and end on the ``time.perf_counter()``
 clock, the clock a profiler's device trace can be mapped onto through
@@ -25,6 +29,7 @@ those that start in a window.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import threading
 import time
@@ -32,8 +37,8 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["CAP", "Recorder", "Span", "child", "dropped", "recorder",
-           "serial", "span", "spans"]
+__all__ = ["CAP", "Recorder", "Span", "adopt", "child", "dropped",
+           "recorder", "serial", "span", "spans"]
 
 CAP = 200_000
 
@@ -54,6 +59,7 @@ class Span(NamedTuple):
 class _Local(threading.local):
     def __init__(self):
         self.stack: list = []     # the thread's open spans, innermost last
+        self.adopted = None       # the Recorder handed to the thread (adopt)
 
 
 _lock = threading.Lock()
@@ -158,10 +164,25 @@ class Recorder:
 
 def recorder(kind: str, number: int | None = None) -> Recorder | None:
     """A Recorder for "<kind> <number>" (a fresh serial number when
-    None) while a torch.profiler records the calling thread, else None."""
+    None) while a torch.profiler records the calling thread, else None;
+    inside adopt(rec) with rec not None, rec."""
+    if _local.adopted is not None:
+        return _local.adopted
     if not torch.autograd._profiler_enabled():
         return None
     return Recorder(f"{kind} {serial() if number is None else number}")
+
+
+@contextlib.contextmanager
+def adopt(rec: Recorder | None):
+    """recorder() on this thread returns rec while the block runs: the
+    Recorder (or None) that the thread which started this one handed
+    it."""
+    _local.adopted = rec
+    try:
+        yield
+    finally:
+        _local.adopted = None
 
 
 def span(rec: Recorder | None, name: str, group=None, n: float = 0.0,

@@ -11,7 +11,8 @@ and the slot overflow; and the wrapper refuses what the host build
 refuses.
 
 Tests marked `cuda` hold the CUDA kernel to the host build byte for byte
-on a card and skip elsewhere.  Run them on a machine with a CUDA card and
+on a card, and a batch that plans ahead on the card to one that does not,
+and skip elsewhere.  Run them on a machine with a CUDA card and
 nvcc from the repository root (this file imports no JAX, so the suite's
 conftest can be left out):
 
@@ -266,6 +267,29 @@ def test_kernel_equals_host_build_on_batch(scenario, cuda):
         _assert_args_equal(got, want)
     assert sc.build_params_launch_count() == 2
     assert card.patch_dropped == host.patch_dropped
+
+
+@pytest.mark.cuda
+def test_lookahead_on_card_equals_one_launch(scenario, cuda):
+    """Four superframes(4, "cuda") calls in a row on a B=16 batch from
+    0.4 s before a 30 s boundary: the third and fourth launch on planes
+    their predecessor's lookahead built on the batch's stream while its
+    kernels ran, and the 16 blocks equal one generate(16) of a batch that
+    never looks ahead, byte for byte."""
+    rin, g0, ieph = scenario
+    rem = (30.0 - (g0.sec % 30.0)) % 30.0
+    g0 = inc_gps_time(g0, rem + 30.0 - 0.4)
+    xyz = _receivers(16, seed=13)
+    want = MonteCarloBatch(rin, g0, ieph, xyz, fs=2.6e6).generate(16, cuda)
+    mc = MonteCarloBatch(rin, g0, ieph, xyz, fs=2.6e6)
+    got = []
+    for _ in range(4):
+        iq = np.concatenate([iq for _, iq in mc.superframes(
+            4, cuda, chunk_blocks=24)])
+        got.append(iq.reshape(16, 4, *iq.shape[1:]))
+    assert np.concatenate(got, axis=1).tobytes() == want.tobytes()
+    assert (mc.lookahead_hits, mc.lookahead_misses) == (2, 0)
+    assert mc.patch_dropped == 0
 
 
 @pytest.mark.cuda

@@ -11,6 +11,7 @@ SNR/exact bounds where it compares with the tiled path.
 
 from __future__ import annotations
 
+import threading
 import zlib
 
 import numpy as np
@@ -67,10 +68,18 @@ def _perturbed_receivers(b: int) -> np.ndarray:
     return np.stack(out)
 
 
-def _boundary_start(g0):
-    """The scenario clock moved to 0.4 s before the next 30 s boundary."""
+def _boundary_start(g0, lead: float = 0.4):
+    """The scenario clock moved to `lead` s before the next 30 s
+    boundary."""
     rem = (30.0 - (g0.sec % 30.0)) % 30.0
-    return inc_gps_time(g0, rem + 30.0 - 0.4)
+    return inc_gps_time(g0, rem + 30.0 - lead)
+
+
+def _batch_iq(mc, n_blocks: int, **kw) -> np.ndarray:
+    """One superframes(n_blocks, "cpu") call's IQ as [B, n_blocks, N, 2]."""
+    iq = np.concatenate([iq for _, iq in mc.superframes(n_blocks, "cpu",
+                                                         **kw)])
+    return iq.reshape(mc.B, n_blocks, *iq.shape[1:])
 
 
 def test_mc_matches_individual_streams(scenario, j_scenario):
@@ -252,6 +261,122 @@ def test_mc_union_resolve_branch_matches_per_receiver(scenario, j_scenario):
     assert np.array_equal(sf_map, jsf)
     assert np.array_equal(ca2, jca2[:ca2.shape[0]])
     assert int(sf_map.max()) == ca2.shape[0] - 1
+
+
+def test_mc_lookahead_back_to_back_equals_one_generate(scenario):
+    """Four superframes(3) calls in a row from 0.4 s before a 30 s
+    boundary (the second crosses it; the lookaheads plan blocks 6-8 and
+    9-11): the third and fourth take the planes their predecessor's
+    lookahead planned, and the 12 blocks equal one generate(12) of a
+    batch that never looks ahead, bit for bit."""
+    rin, g0, ieph = scenario
+    g0b = _boundary_start(g0)
+    xyz = _perturbed_receivers(2)
+    want = MonteCarloBatch(rin, g0b, ieph, xyz, fs=FS,
+                           block_samples=BS).generate(12, "cpu")
+    mc = MonteCarloBatch(rin, g0b, ieph, xyz, fs=FS, block_samples=BS)
+    got = np.concatenate([_batch_iq(mc, 3, chunk_blocks=4)
+                          for _ in range(4)], axis=1)
+    assert np.array_equal(got, want)
+    assert (mc.lookahead_hits, mc.lookahead_misses) == (2, 0)
+
+
+@pytest.mark.parametrize("other", ["n_blocks", "plan_blocks"])
+def test_mc_lookahead_miss_puts_schedulers_back(scenario, other):
+    """Two superframes(3) calls from 0.7 s before a 30 s boundary leave a
+    lookahead of blocks 6-8 pending, across the boundary (nav refresh,
+    anchors, re-allocation).  A call with another n_blocks, or a direct
+    plan_blocks, discards it and plans blocks 6-7 as a batch that never
+    looked ahead does, byte for byte."""
+    rin, g0, ieph = scenario
+    g0b = _boundary_start(g0, 0.7)
+    xyz = _perturbed_receivers(2)
+    fresh = MonteCarloBatch(rin, g0b, ieph, xyz, fs=FS, block_samples=BS)
+    fresh.plan_blocks(3)
+    fresh.plan_blocks(3)
+    mc = MonteCarloBatch(rin, g0b, ieph, xyz, fs=FS, block_samples=BS)
+    _batch_iq(mc, 3)
+    _batch_iq(mc, 3)
+    if other == "n_blocks":
+        assert np.array_equal(_batch_iq(mc, 2), fresh.generate(2, "cpu"))
+    else:
+        for got, want in zip(mc.plan_blocks(2), fresh.plan_blocks(2)):
+            assert np.array_equal(got, want)
+    assert (mc.lookahead_hits, mc.lookahead_misses) == (0, 1)
+    assert fresh.lookahead_hits == fresh.lookahead_misses == 0
+
+
+def test_mc_generate_alone_starts_no_lookahead(scenario, monkeypatch):
+    """A one-shot generate() starts no thread; a second one in a row
+    with the same n_blocks and device starts the lookahead."""
+    started = []
+
+    class Spy(threading.Thread):
+        def start(self):
+            started.append(self.name)
+            super().start()
+
+    monkeypatch.setattr(mcm.threading, "Thread", Spy)
+    rin, g0, ieph = scenario
+    mc = MonteCarloBatch(rin, g0, ieph, _perturbed_receivers(2), fs=FS,
+                         block_samples=BS)
+    mc.generate(2, "cpu")
+    assert started == []
+    mc.generate(2, "cpu")
+    assert started == ["mc.lookahead"]
+
+
+def test_mc_lookahead_error_surfaces_in_next_call(scenario):
+    """A lookahead that raises after advancing the schedulers: the next
+    call raises its error, with the schedulers put back, so the call
+    after it plans the blocks the failed lookahead had planned."""
+    rin, g0, ieph = scenario
+    g0b = _boundary_start(g0)
+    xyz = _perturbed_receivers(2)
+    want = MonteCarloBatch(rin, g0b, ieph, xyz, fs=FS,
+                           block_samples=BS).generate(9, "cpu")
+    mc = MonteCarloBatch(rin, g0b, ieph, xyz, fs=FS, block_samples=BS)
+    plan = mc._plan_blocks
+
+    def failing(n_blocks):
+        plans = plan(n_blocks)
+        if threading.current_thread().name == "mc.lookahead":
+            raise RuntimeError("lookahead failed")
+        return plans
+
+    got = [_batch_iq(mc, 3)]
+    mc._plan_blocks = failing
+    got.append(_batch_iq(mc, 3))
+    with pytest.raises(RuntimeError, match="lookahead failed"):
+        _batch_iq(mc, 3)
+    del mc._plan_blocks
+    got.append(_batch_iq(mc, 3))
+    assert np.array_equal(np.concatenate(got, axis=1), want)
+    assert (mc.lookahead_hits, mc.lookahead_misses) == (0, 1)
+
+
+def test_mc_patch_dropped_counts_each_taken_batch_once(scenario,
+                                                        monkeypatch):
+    """With every build dropping 5 words: calls of 3, 3, 3 and 2 blocks
+    count 5 a call.  The lookahead pending after the second and third
+    call is not counted, reading the count leaves it pending, the third
+    call counts the batch it takes once, and the fourth call discards
+    the last lookahead uncounted."""
+    build = sc.build_group_params
+    monkeypatch.setattr(sc, "build_group_params",
+                        lambda planes: build(planes)._replace(
+                            patch_dropped=5))
+    rin, g0, ieph = scenario
+    mc = MonteCarloBatch(rin, g0, ieph, _perturbed_receivers(2), fs=FS,
+                         block_samples=BS)
+    seen = []
+    for n_blocks in (3, 3, 3, 2):
+        _batch_iq(mc, n_blocks)
+        seen.append(mc.patch_dropped)
+        assert (mc._lookahead is not None) == (n_blocks == 3 and
+                                               len(seen) > 1)
+    assert seen == [5, 10, 15, 20]
+    assert (mc.lookahead_hits, mc.lookahead_misses) == (1, 1)
 
 
 def test_mc_rejects_blocks_beyond_kernel_range(scenario):

@@ -5,7 +5,9 @@ the work, hands its recorder to the stream's planner thread, and leaves
 the output byte for byte as it is untraced.  Runs are the CPU twin at
 1 MHz: a K=2 IqStream of 7 blocks in plans of at most 3 (its blocks
 also split into 3 sub-rows under a lowered kernel range), and a B=3
-MonteCarloBatch of 3 blocks.  transfer.pin_alloc is recorded only on a
+MonteCarloBatch of 3 blocks, alone or as generate calls of 3, 3, 3 and 2
+blocks (the second call's lookahead is taken by the third, the third's
+discarded by the fourth).  transfer.pin_alloc is recorded only on a
 card (pinned staging and output buffers); the benchmark's traced runs
 read it there.
 """
@@ -35,6 +37,9 @@ STREAM_SPANS = {"stream.init", "stream.plan", "scheduler.solve",
                 "stream.prepare", "stream.dispatch", "stream.queue_wait",
                 "transfer.event_wait", "stream.unpack"}
 MC_SPANS = {"mc.plan_blocks", "mc.solve", "mc.plan", "mc.build"}
+MC_PARTS = {"mc.solve", "mc.plan", "mc.build"}
+# one batch, and batches back to back: one lookahead taken, one discarded
+BATCHES = {"one": (3,), "ahead": (3, 3, 3, 2)}
 # every span but stream.init and the consumer's last queue wait (for the
 # end of the stream) belongs to a dispatch group
 GROUP_SPANS = STREAM_SPANS - {"stream.init"}
@@ -55,11 +60,14 @@ def _stream(scenario):
                                               max_blocks=MAX_BLOCKS)))
 
 
-def _batch(scenario):
+def _batch(scenario, calls=BATCHES["one"]):
+    """(the batch, its IQ [B, sum(calls), N, 2]) of one generate call
+    per entry of calls, in a row."""
     rin, g0, ieph, xyz = scenario
     rx = xyz[None, :] + np.array([[0.0, 0, 0], [500, 0, 0], [0, 500, 0]])
     mc = MonteCarloBatch(rin, g0, ieph, rx, fs=FS)
-    return mc, mc.generate(3, "cpu")
+    return mc, np.concatenate([mc.generate(n, "cpu") for n in calls],
+                              axis=1)
 
 
 def _traced(fn, *args):
@@ -75,7 +83,8 @@ def _traced(fn, *args):
 def test_no_profiler_records_nothing(scenario):
     t0 = time.perf_counter()
     _stream(scenario)
-    _batch(scenario)
+    for calls in BATCHES.values():
+        _batch(scenario, calls)
     assert trace.spans(t0, time.perf_counter()) == []
 
 
@@ -91,16 +100,38 @@ def test_traced_stream_same_bytes_and_every_span(scenario):
     assert all(s.cpu is not None and s.cpu >= 0 for s in planner)
 
 
-def test_traced_batch_same_bytes_and_every_span(scenario):
-    _, plain = _batch(scenario)
-    (mc, iq), spans = _traced(_batch, scenario)
+@pytest.mark.parametrize("calls", BATCHES)
+def test_traced_batch_same_bytes_and_every_span(scenario, calls):
+    """A lookahead's mc.plan_blocks records on its own thread, one
+    batch each; mc.lookahead_wait on the caller's, n 1 where the call
+    took the lookahead's planes and 0 where it discarded them."""
+    calls = BATCHES[calls]
+    _, plain = _batch(scenario, calls)
+    (mc, iq), spans = _traced(_batch, scenario, calls)
     assert np.array_equal(iq, plain)
-    assert {s.name for s in spans} == MC_SPANS
+    ahead = len(calls) > 1
+    assert {s.name for s in spans} == \
+        MC_SPANS | ({"mc.lookahead_wait"} if ahead else set())
+    assert (mc.lookahead_hits, mc.lookahead_misses) == \
+        ((1, 1) if ahead else (0, 0))
     top = [s for s in spans if s.name == "mc.plan_blocks"]
-    assert len(top) == 1 and top[0].n == 1.0
-    # control_seconds reads the same clock reads as the span
-    assert mc.control_seconds == pytest.approx(top[0].t1 - top[0].t0,
-                                               abs=1e-12)
+    # a batch planned for each call but the hit, and one per lookahead
+    assert len(top) == len(calls) + mc.lookahead_misses
+    assert all(s.n == 1.0 for s in top)
+    main = threading.current_thread().name
+    assert sorted(s.thread for s in top) == sorted(
+        [main] * (len(calls) - mc.lookahead_hits)
+        + ["mc.lookahead"] * (mc.lookahead_hits + mc.lookahead_misses))
+    waits = [s for s in spans if s.name == "mc.lookahead_wait"]
+    assert [s.n for s in sorted(waits, key=lambda s: s.t0)] == \
+        ([1.0, 0.0] if ahead else [])
+    assert all(s.thread == main and s.parent is None for s in waits)
+    # a wait shares its batch's req with the lookahead that planned it
+    assert {s.req for s in waits} == \
+        {s.req for s in top if s.thread == "mc.lookahead"}
+    # control_seconds reads the same clock reads as the spans
+    assert mc.control_seconds == pytest.approx(
+        sum(s.t1 - s.t0 for s in top), abs=1e-9)
 
 
 def _nested(spans):
@@ -141,17 +172,24 @@ def test_queue_wait_counts_every_superframe_delivered(scenario):
         pytest.approx(BLOCKS / SF_BLOCKS)
 
 
-def test_batch_parts_fall_inside_plan_blocks(scenario):
-    _, spans = _traced(_batch, scenario)
+@pytest.mark.parametrize("calls", BATCHES)
+def test_batch_parts_fall_inside_plan_blocks(scenario, calls):
+    """Every mc.plan_blocks, the caller's and the lookahead's alike,
+    holds its three parts, on its own thread and of its own batch."""
+    _, spans = _traced(_batch, scenario, BATCHES[calls])
     _nested(spans)
-    top = next(s for s in spans if s.name == "mc.plan_blocks")
-    parts = [s for s in spans if s.name in ("mc.solve", "mc.plan",
-                                            "mc.build")]
-    assert {s.name for s in parts} == {"mc.solve", "mc.plan", "mc.build"}
-    for s in parts:
-        assert s.parent == "mc.plan_blocks" and s.req == top.req
-        assert top.t0 <= s.t0 <= s.t1 <= top.t1
-    assert sum(s.t1 - s.t0 for s in parts) <= top.t1 - top.t0
+    tops = [s for s in spans if s.name == "mc.plan_blocks"]
+    parts = [s for s in spans if s.name in MC_PARTS]
+    assert len({s.req for s in tops}) == len(tops)
+    for top in tops:
+        mine = [s for s in parts if s.req == top.req]
+        assert {s.name for s in mine} == MC_PARTS
+        for s in mine:
+            assert s.parent == "mc.plan_blocks" and s.thread == top.thread
+            assert top.t0 <= s.t0 <= s.t1 <= top.t1
+        assert sum(s.t1 - s.t0 for s in mine) <= top.t1 - top.t0
+    assert sum(len([s for s in parts if s.req == top.req])
+               for top in tops) == len(parts)
 
 
 def test_unsplit_dispatch_counts_a_row_a_block(scenario):
