@@ -1098,11 +1098,13 @@ def phase_mc_full(scen) -> tuple[int, int, dict]:
     t0 = time.perf_counter()
     mc = MonteCarloBatch(rin, g0, ieph, xyz, fs=FS)
     init_s = time.perf_counter() - t0
-    planned = {}
+    planned = {"s": 0.0}
     plan_blocks = mc.plan_blocks
 
     def keep_plan(n, device=None):
+        t = time.perf_counter()
         planned["args"] = plan_blocks(n, device=device)
+        planned["s"] += time.perf_counter() - t
         return planned["args"]
     mc.plan_blocks = keep_plan
 
@@ -1141,15 +1143,16 @@ def phase_mc_full(scen) -> tuple[int, int, dict]:
     if bad:
         raise AssertionError(f"Monte-Carlo chunk 0 differs from the twin "
                              f"on the card in {bad} words (max err {err})")
-    dev_s = loop_s - mc.control_seconds
+    control_s = planned["s"]
+    dev_s = loop_s - control_s
     gsps = n_rows * TIMED_SAMPLES / loop_s / 1e9
     _phase(f"montecarlo B={MC_B} x {TIMED_BLOCKS} blocks", t0,
            f"rows={rows} launches={launches} tables={ca2.shape[0]} "
            f"patch_dropped={mc.patch_dropped} chunk0 == twin; init "
-           f"{init_s:.3f} s, control {mc.control_seconds:.3f} s, device+"
+           f"{init_s:.3f} s, control {control_s:.3f} s, device+"
            f"consume {dev_s:.3f} s, aggregate {gsps:.2f} Gsample/s")
     return launches, err, {"init_s": init_s,
-                           "control_s": mc.control_seconds,
+                           "control_s": control_s,
                            "device_consume_s": dev_s,
                            "aggregate_gsps": gsps,
                            "build_params_launches": build_launches}
@@ -1185,6 +1188,7 @@ def phase_build_params(scen) -> dict:
     from pluto_gps_sim_tpu_torch.ops.synth_torch import pack_plan
     from pluto_gps_sim_tpu_torch.parallel import MonteCarloBatch
     from pluto_gps_sim_tpu_torch.ops import cuda_build
+    from pluto_gps_sim_tpu_torch.runtime.launch import pack_group
     t0 = time.perf_counter()
     cuda_build.load_kernel("build_params")
     log = cuda_build.build_logs.get("build_params", "(loaded from cache)")
@@ -1218,8 +1222,9 @@ def phase_build_params(scen) -> dict:
             host_s.append(time.perf_counter() - t1)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            prmi, prmf, _, _ = mc._build(plans, dev)
+            packed = pack_group(plans, dev)
             card_host_s.append(time.perf_counter() - t1)
+            prmi, prmf = packed.arrays[:2]
             for got, plane in ((prmi, want.prmi), (prmf, want.prmf)):
                 b, e = _plane_diff(got, plane)
                 bad, err = bad + b, max(err, e)
@@ -1227,7 +1232,7 @@ def phase_build_params(scen) -> dict:
                 raise AssertionError(
                     f"build_params differs from the host build in {bad} "
                     f"words, max abs err {err} (receivers seed {seed})")
-            dropped.append(mc.patch_dropped)
+            dropped.append(int(packed.patch_dropped))
             if dropped[-1] != want.patch_dropped:
                 raise AssertionError(f"patch_dropped {dropped[-1]} against "
                                      f"the host build's "

@@ -11,8 +11,10 @@ JAX package module for module:
     precise and the tiled synthesis paths as tensor math;
   * ``ops/synth_cuda`` holds the parameter-plane builder, the CUDA
     synthesis kernel's wrapper and its plain PyTorch twin;
-  * ``runtime/stream`` pipelines host planning, synthesis and the
-    device-to-host copy; ``runtime/sinks`` (with the native paced ring
+  * ``runtime/launch`` packs plans into a kernel launch's inputs and
+    moves them through the card and back; ``runtime/stream`` pipelines
+    host planning, synthesis and the device-to-host copy;
+    ``runtime/sinks`` (with the native paced ring
     writer of ``utils/native``) delivers it; ``cli`` drives both;
   * ``parallel/montecarlo`` runs B receivers through one kernel launch;
   * ``utils/{acquisition,lnav_decode,receiver}`` is the numpy software

@@ -46,12 +46,10 @@ against perturbed trajectories:
 from __future__ import annotations
 
 import threading
-import time
 
 import numpy as np
 import torch
 
-from ..constants import MAX_CHAN
 from ..ingest.rinex import RinexResult
 from ..models import orbits
 from ..models.gpstime import GpsTime
@@ -59,27 +57,13 @@ from ..models.lnav import NavCache
 from ..ops import synth_cuda as sc
 from ..ops.epoch import (solve_ranges, solve_ranges_batch,
                          solve_ranges_batch_lean)
-from ..ops.synth_torch import pack_plan, resolve_device
+from ..ops.synth_torch import resolve_device
 from ..runtime import trace
+from ..runtime.launch import (device_view, launch_blocks, pack_group,
+                              unpack_rows)
 from ..runtime.scheduler import Scheduler, _gather_eph
-from ..runtime.stream import device_view, launch_blocks
 
 __all__ = ["MonteCarloBatch"]
-
-
-def _dedupe(tables: list, counts: np.ndarray):
-    """(the distinct tables by bytes, in first-seen order; an [M] int32
-    map of every row to its table, tables[i] covering counts[i] rows)."""
-    seen: dict = {}
-    distinct, idx = [], np.empty(len(tables), np.int32)
-    for i, tab in enumerate(tables):
-        key = tab.tobytes()
-        j = seen.get(key)
-        if j is None:
-            j = seen[key] = len(distinct)
-            distinct.append(tab)
-        idx[i] = j
-    return distinct, np.repeat(idx, counts)
 
 
 class _Lookahead:
@@ -113,10 +97,10 @@ class MonteCarloBatch:
         bs = int(block_samples or round(fs / 10))
         if bs > sc.MAX_BLOCK_SAMPLES:
             # the single-receiver stream splits over-long blocks into
-            # re-anchored sub-blocks (runtime.stream.IqStream /
-            # ops.synth_torch.split_plan); the batch path doesn't carry
-            # the reassembly plumbing — fail with guidance instead of
-            # the kernel builder's bare range assert
+            # re-anchored sub-blocks (ops.synth_torch.split_plan in
+            # runtime.launch.pack_group's host build); the batch's card
+            # build does not split and its rows are whole blocks — fail
+            # with guidance instead of build_params' range check
             raise ValueError(
                 f"block_samples={bs} exceeds the synthesis kernel's Q24 "
                 f"range ({sc.MAX_BLOCK_SAMPLES}; fs <= 5.24 MHz at "
@@ -133,7 +117,6 @@ class MonteCarloBatch:
                       nav_cache=self.nav_cache, alloc_precomp=pre[b])
             for b in range(self.B)]
         self.block_samples = self.scheds[0].block_samples
-        self.control_seconds = 0.0   # cumulative plan_blocks seconds
         self._dropped = 0            # dropped gain-trunc patches, counted
         self._dropped_dev = []       # ... and still on the card, per launch
         self._streams: dict = {}     # the batch's CUDA stream, per device
@@ -179,7 +162,7 @@ class MonteCarloBatch:
 
     def plan_blocks(self, n_blocks: int, device=None):
         """Plan n_blocks for every trajectory; returns kernel-ready args
-        (prmi, prmf, ca2, sf_map).
+        (prmi, prmf, ca2, sf_map), packed by runtime.launch.pack_group.
 
         With no device, or a CPU one, they are host numpy arrays.  With
         a CUDA device the parameter planes are built on the card by
@@ -205,25 +188,16 @@ class MonteCarloBatch:
         if not ahead:
             self._settle_lookahead(None)
             self._last_key = None
-        t_start = time.perf_counter()
-        rec = trace.recorder("batch")
-        top = None if rec is None else \
-            rec.span("mc.plan_blocks", n=1.0).open(t_start)
-        try:
+        with trace.span(trace.recorder("batch"), "mc.plan_blocks", n=1.0):
             dev = None if device is None else resolve_device(device)
             plans = self._plan_blocks(int(n_blocks))
             with trace.child("mc.build"):
-                args, dropped = self._build(plans, dev)
+                packed = pack_group(plans, dev)
             if ahead:
-                la.dropped.append(dropped)
+                la.dropped.append(packed.patch_dropped)
             else:
-                self._count_dropped(dropped)
-            return args
-        finally:
-            t_end = time.perf_counter()
-            self.control_seconds += t_end - t_start
-            if top is not None:
-                top.close(t_end)
+                self._count_dropped(packed.patch_dropped)
+            return packed.arrays
 
     def _plan_blocks(self, n_blocks: int) -> list:
         per_b = [[] for _ in range(self.B)]
@@ -311,54 +285,6 @@ class MonteCarloBatch:
         else:
             self._dropped += dropped
 
-    def _build(self, plans: list, dev):
-        """mc.build: the kernel inputs of a batch's plans, and the
-        build's dropped-patch count (an int, or a tensor on the card).
-
-        C/A tables dedupe by chip-table bytes: receivers near each other
-        see the same satellites, so B=256 plans typically share a handful
-        of distinct tables, and sf_map rows point straight at the
-        deduped slot (the kernel reads tables through sf_map, so the
-        output is bit-identical).  On the host the parameter planes are
-        one batched build_group_params over every plan (bit-identical to
-        per-plan builds + concat; per-op numpy overhead amortizes over
-        B x n_superframes segments).  For a card the plans' raw fields
-        are concatenated into pinned arrays, their nav-bit tables deduped
-        the same way, and ops.synth_cuda.build_params builds the planes
-        there in one launch."""
-        counts = np.array([p.n_blocks for p in plans])
-        ca_tabs, sf_map = _dedupe([p.ca2 for p in plans], counts)
-        # the deduped list as it is: the CUDA kernel takes any table
-        # count, so the JAX package's power-of-two padding (a fixed
-        # Mosaic compile shape) has no counterpart here
-        ca2 = sc.pack_ca_tables(ca_tabs)
-        if dev is None or dev.type == "cpu":
-            bp = sc.build_group_params([pack_plan(p, tables=False)
-                                        for p in plans])
-            return (bp.prmi, bp.prmf, ca2, sf_map), bp.patch_dropped
-        m = int(counts.sum())
-        fields = sc.PlanFields(
-            torch.empty((m, MAX_CHAN), dtype=torch.bool, pin_memory=True),
-            torch.empty((5, m, MAX_CHAN), dtype=torch.float64,
-                        pin_memory=True),
-            torch.empty((3, m, MAX_CHAN), dtype=torch.int32,
-                        pin_memory=True),
-            self.scheds[0].delt)            # one fs for every receiver
-        np.concatenate([p.active for p in plans], out=fields.active.numpy())
-        for planes, names in ((fields.real, sc._REAL_FIELDS),
-                              (fields.ints, sc._INT_FIELDS)):
-            for k, name in enumerate(names):
-                np.concatenate([getattr(p, name) for p in plans],
-                               out=planes[k].numpy())
-        nav_tabs, bits_map = _dedupe([p.bits for p in plans], counts)
-        sc.check_sf_map(sf_map, ca2.shape[0])
-        prmi, prmf, dropped = sc.build_params(
-            fields, np.stack(nav_tabs), bits_map, self.block_samples,
-            device=dev)
-        ca2, sf_map = (torch.from_numpy(a).to(dev, non_blocking=True)
-                       for a in (ca2, sf_map))
-        return (prmi, prmf, ca2, sf_map), dropped
-
     def _stream(self, dev: torch.device):
         """The batch's CUDA stream on dev: its builds, a lookahead's
         included, and its launches run there in order."""
@@ -433,7 +359,7 @@ class MonteCarloBatch:
         CUDA stream) instead of host int16 [len, N, 2].  On CUDA chunk
         k+1 launches while chunk k's D2H into a pinned host buffer
         completes (one-deep software pipeline on a stream of its own,
-        runtime.stream.launch_blocks).
+        runtime.launch.launch_blocks).
 
         chunk_blocks bounds the rows per kernel launch so the packed
         output fits device memory at large B (4*N bytes per row); the
@@ -493,7 +419,7 @@ class MonteCarloBatch:
                 return off, device_view(out, done, dev)
             if done is not None:
                 done.synchronize()
-            return off, sc.unpack_iq(out.numpy(), n)
+            return off, unpack_rows(out, n, n)
 
         step = total if chunk_blocks is None or mesh is not None \
             else max(1, chunk_blocks)

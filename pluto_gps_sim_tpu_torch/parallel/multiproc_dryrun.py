@@ -188,25 +188,12 @@ def _check_on_mesh(mesh, arrays, block_samples: int, what: str) -> int:
     return want.shape[0]
 
 
-def _group_arrays(plans):
-    """Kernel inputs for one scheduler-planned dispatch group."""
-    import numpy as np
-
-    from ..ops import synth_cuda as sc
-    from ..ops.synth_torch import pack_plan
-    dps = [pack_plan(p, tables=False) for p in plans]
-    bp = sc.build_group_params(dps)
-    sf_map = np.concatenate([np.full(dp.n_blocks, i, np.int32)
-                             for i, dp in enumerate(dps)])
-    return (bp.prmi, bp.prmf, sc.pack_ca_tables([dp.ca2 for dp in dps]),
-            sf_map), dps[0].block_samples
-
-
 def worker_body(pid: int, nproc: int, device: str) -> None:
     """One rank of run_multiprocess_dryrun (runs after the process group
     is up; see _STUB)."""
     import numpy as np
 
+    from ..runtime.launch import pack_group
     from ..runtime.stream import IqStream
     from .mesh import make_mesh
     from .synthetic import synthetic_params
@@ -238,8 +225,9 @@ def worker_body(pid: int, nproc: int, device: str) -> None:
     # ---- phase 3: the real scenario's params through the mesh -----------
     sched = IqStream(rin, g0, ieph, xyz, fs=fs, block_samples=bs,
                      device=mesh.device).sched
-    arrays, n = _group_arrays(sched.plan_group(2, max_blocks=4))
-    n_real = _check_on_mesh(mesh, arrays, n, f"rank {pid}: real scenario")
+    group = pack_group(sched.plan_group(2, max_blocks=4))
+    n_real = _check_on_mesh(mesh, group.arrays, group.block_samples,
+                            f"rank {pid}: real scenario")
 
     print(f"{OK_TAG}: process {pid}/{nproc}, mesh time={n_time} "
           f"chan={n_chan} (chan spans processes) over "
@@ -252,6 +240,7 @@ def worker_body(pid: int, nproc: int, device: str) -> None:
 def multichip_body(pid: int, nproc: int, device: str) -> None:
     """One rank of dryrun_multichip: a synthetic group and a real
     scheduler group at 16,384 samples through the default mesh."""
+    from ..runtime.launch import pack_group
     from ..runtime.scheduler import Scheduler
     from .mesh import make_mesh
     from .synthetic import synthetic_params
@@ -270,8 +259,9 @@ def multichip_body(pid: int, nproc: int, device: str) -> None:
     sched = Scheduler(rin, g0, ieph, xyz, fs=2_600_000.0,
                       block_samples=16384)
     plans = sched.plan_group(2, max_blocks=n_time)
-    arrays, n = _group_arrays(plans)
-    n_real = _check_on_mesh(mesh, arrays, n, f"rank {pid}: real group")
+    group = pack_group(plans)
+    n_real = _check_on_mesh(mesh, group.arrays, group.block_samples,
+                            f"rank {pid}: real group")
     n_act = max(int(p.active.any(axis=0).sum()) for p in plans)
     print(f"{MULTICHIP_TAG}: rank {pid}/{nproc} real-RINEX scheduler group "
           f"({len(plans)} superframes, {n_real} blocks, {n_act} active "

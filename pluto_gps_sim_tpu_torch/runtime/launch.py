@@ -1,0 +1,194 @@
+"""The seam between plans and the card: what the synthesis kernel reads,
+and how it gets there and back.
+
+``pack_group`` turns consecutive SuperframePlans into one launch's
+inputs: the [M, 256] parameter planes, the deduplicated bit-packed C/A
+tables and the row -> table ``sf_map``.  ``launch_blocks`` stages them,
+launches the kernel and brings its packed output back into pinned host
+memory, ``device_view`` orders a device output on the consumer's
+stream, and ``unpack_rows`` turns landed rows into host int16 IQ.
+``runtime.stream.IqStream``, ``parallel.MonteCarloBatch`` and the
+multi-process dryrun all go through here.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..constants import MAX_CHAN
+from ..ops import synth_cuda as sc
+from ..ops.synth_torch import pack_plan, split_plan
+from . import trace
+
+__all__ = ["Packed", "SF_BLOCKS", "device_view", "launch_blocks",
+           "pack_group", "unpack_rows"]
+
+SF_BLOCKS = 300          # 0.1 s blocks in a 30 s superframe
+
+
+class Packed(NamedTuple):
+    """One kernel launch's inputs, packed from consecutive plans."""
+
+    arrays: tuple            # (prmi, prmf, ca_tabs, sf_map)
+    block_samples: int       # samples per kernel row (sub-block if split)
+    n_orig: int              # samples per scenario block
+    patch_dropped: object    # an int, or a one-element tensor on the card
+
+
+def _dedupe(tables: list, counts: list):
+    """(the distinct tables by bytes, in first-seen order; an [M] int32
+    map of every row to its table, tables[i] covering counts[i] rows)."""
+    seen: dict = {}
+    distinct, idx = [], np.empty(len(tables), np.int32)
+    for i, tab in enumerate(tables):
+        key = tab.tobytes()
+        j = seen.get(key)
+        if j is None:
+            j = seen[key] = len(distinct)
+            distinct.append(tab)
+        idx[i] = j
+    return distinct, np.repeat(idx, counts)
+
+
+def pack_group(plans: list, device=None) -> Packed:
+    """The kernel inputs of consecutive plans, rows in plan order.
+
+    C/A tables dedupe by chip-table bytes: the channel allocation only
+    changes at rise and set, and receivers near each other see the same
+    satellites, so a group's plans share a handful of tables, and
+    sf_map points every row at its table (the kernel reads tables only
+    through sf_map, so the output is the same word for word).
+
+    With no device, or a CPU one, everything is built on the host:
+    pack_plan(tables=False) a plan, split_plan where a block passes the
+    kernel's Q24 range (sc.MAX_BLOCK_SAMPLES; rows are then sub-blocks)
+    and one build_group_params over the group.  With a CUDA device the
+    plans' raw fields are concatenated into pinned arrays, their nav-bit
+    tables deduped the same way, and sc.build_params builds the planes
+    there in one launch on the current stream, nothing synchronized;
+    it refuses blocks past the Q24 range with a ValueError."""
+    n = plans[0].block_samples
+    dev = None if device is None else torch.device(device)
+    on_card = dev is not None and dev.type != "cpu"
+    rows = [p.n_blocks for p in plans]
+    sub = n
+    if not on_card:
+        dps = [pack_plan(p, tables=False) for p in plans]
+        if n > sc.MAX_BLOCK_SAMPLES:
+            with trace.child("packing.split", n=sum(rows) / SF_BLOCKS):
+                dps = [split_plan(dp, sc.MAX_BLOCK_SAMPLES) for dp in dps]
+            rows, sub = [dp.n_blocks for dp in dps], dps[0].block_samples
+        bp = sc.build_group_params(dps)
+        prmi, prmf, dropped = bp.prmi, bp.prmf, bp.patch_dropped
+    else:
+        m = sum(rows)
+        fields = sc.PlanFields(
+            torch.empty((m, MAX_CHAN), dtype=torch.bool, pin_memory=True),
+            torch.empty((5, m, MAX_CHAN), dtype=torch.float64,
+                        pin_memory=True),
+            torch.empty((3, m, MAX_CHAN), dtype=torch.int32,
+                        pin_memory=True),
+            plans[0].delt)
+        np.concatenate([p.active for p in plans], out=fields.active.numpy())
+        for planes, names in ((fields.real, sc._REAL_FIELDS),
+                              (fields.ints, sc._INT_FIELDS)):
+            for k, name in enumerate(names):
+                np.concatenate([getattr(p, name) for p in plans],
+                               out=planes[k].numpy())
+        nav_tabs, bits_map = _dedupe([p.bits for p in plans], rows)
+        prmi, prmf, dropped = sc.build_params(
+            fields, np.stack(nav_tabs), bits_map, n, device=dev)
+    ca_tabs, sf_map = _dedupe([p.ca2 for p in plans], rows)
+    # the deduped list as it is: the CUDA kernel takes any table count,
+    # so the JAX package's power-of-two padding of a batch's tables (a
+    # fixed Mosaic compile shape) has no counterpart here
+    ca_tabs = sc.pack_ca_tables(ca_tabs)
+    if on_card:
+        sc.check_sf_map(sf_map, ca_tabs.shape[0])
+        ca_tabs, sf_map = (torch.from_numpy(a).to(dev, non_blocking=True)
+                           for a in (ca_tabs, sf_map))
+    return Packed((prmi, prmf, ca_tabs, sf_map), sub, n, dropped)
+
+
+def launch_blocks(arrays, block_samples: int, device: torch.device,
+                  cuda_stream, to_host: bool, mesh=None):
+    """Stage one kernel launch's inputs and launch it; returns
+    (out, done).
+
+    On the CPU the twin runs here and done is None.  On CUDA the planes
+    go up from pinned staging copies (unless they are device tensors
+    already), the kernel runs, and (to_host) its packed output comes
+    back into a fresh pinned host tensor, all enqueued on cuda_stream;
+    done is the event recorded after them, so the caller returns at
+    once and the next launch overlaps this one's copy.  With a mesh
+    (parallel.mesh) the launch runs sharded through
+    parallel.shard.launch_on_mesh, whose collectives block the calling
+    thread; every rank must make the same calls in the same order."""
+    if mesh is not None:
+        from ..parallel.shard import launch_on_mesh
+        out = launch_on_mesh(mesh, arrays, block_samples)
+        if cuda_stream is None or (to_host and out.device.type == "cpu"):
+            return out, None
+        # a gloo mesh on a card gathered on the host: as_device wants
+        # the words back on the card
+        return _to_host_async(out.to(device), cuda_stream, to_host)
+    prmi, prmf, ca_tabs, sf_map = arrays
+    if isinstance(prmi, torch.Tensor):
+        # inputs already on the card (pack_group with a device), their
+        # sf_map checked before it went up
+        out = sc.synth_blocks(prmi, prmf, ca_tabs, sf_map, block_samples)
+        return _to_host_async(out, cuda_stream, to_host)
+    args = [torch.from_numpy(np.ascontiguousarray(a))
+            for a in (prmi, prmf, ca_tabs, sf_map)]
+    if cuda_stream is None:
+        return sc.synth_blocks(*args, block_samples), None
+    sc.check_sf_map(sf_map, ca_tabs.shape[0])
+    with trace.child("transfer.pin_alloc",
+                     nbytes=sum(a.nbytes for a in args)):
+        args = [a.pin_memory() for a in args]
+    args = [a.to(device, non_blocking=True) for a in args]
+    out = sc.synth_blocks(*args, block_samples)
+    return _to_host_async(out, cuda_stream, to_host)
+
+
+def _to_host_async(out: torch.Tensor, cuda_stream, to_host: bool):
+    """(out, event) after an optional D2H of out into a fresh pinned
+    host tensor, both on cuda_stream; the consumer owns the buffer."""
+    if to_host:
+        with trace.child("transfer.pin_alloc", nbytes=out.nbytes):
+            host = torch.empty(out.shape, dtype=out.dtype,
+                               pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        out = host
+    done = torch.cuda.Event()
+    done.record(cuda_stream)
+    return out, done
+
+
+def device_view(out: torch.Tensor, done, device: torch.device):
+    """A launch's device output ordered on the consumer's current CUDA
+    stream (done is its event, None on the CPU)."""
+    if done is not None:
+        consumer = torch.cuda.current_stream(device)
+        consumer.wait_event(done)
+        out.record_stream(consumer)
+    return out
+
+
+def unpack_rows(out: torch.Tensor, block_samples: int,
+                n_orig: int) -> np.ndarray:
+    """Host int16 IQ [M, n_orig, 2] of a launch's packed rows once they
+    are on the host.  Where split_plan cut each block into K sub-rows of
+    block_samples (K = ceil(n_orig / block_samples)), a block's sub-rows
+    are laid side by side and trimmed to n_orig, the last having run
+    past the block's end.  Both are views of the unpacked rows: nothing
+    is copied."""
+    iq = sc.unpack_iq(out.numpy(), block_samples)
+    k = -(-n_orig // block_samples)
+    if k > 1:
+        iq = iq.reshape(iq.shape[0] // k, k * block_samples, 2)
+        iq = iq[:, :n_orig]
+    return iq

@@ -43,7 +43,7 @@ from . import scenario as scenario_mod
 from . import trace
 from .allocator import ChannelState, allocate_channels
 
-__all__ = ["SuperframePlan", "Scheduler"]
+__all__ = ["SuperframePlan", "Scheduler", "copy_snapshot"]
 
 _BLOCK_DT = 0.1
 
@@ -52,6 +52,13 @@ def _gather_eph(eph, sv_idx: np.ndarray):
     """Ephemeris dataclass gathered to the channel slots' satellites."""
     return type(eph)(**{f.name: np.asarray(getattr(eph, f.name))[sv_idx]
                         for f in dataclasses.fields(eph)})
+
+
+def copy_snapshot(snap: dict) -> dict:
+    """A copy of a Scheduler.snapshot() capsule that shares no array."""
+    return {"jblk": snap["jblk"], "ieph": snap["ieph"],
+            "channel_state": {k: np.copy(v) for k, v in
+                              snap["channel_state"].items()}}
 
 
 @dataclass
@@ -205,9 +212,8 @@ class Scheduler:
         the block counter, the ephemeris set and every channel-state
         field (the nav memos, _nav_refresher and a shared NavCache, need
         none)."""
-        return {"jblk": self.jblk, "ieph": self.ieph,
-                "channel_state": {k: np.copy(v) for k, v in
-                                  vars(self.state).items()}}
+        return copy_snapshot({"jblk": self.jblk, "ieph": self.ieph,
+                              "channel_state": vars(self.state)})
 
     def restore(self, snap: dict) -> None:
         """Put the state of a snapshot() back."""

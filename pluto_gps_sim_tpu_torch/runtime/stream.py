@@ -29,14 +29,14 @@ from ..models.gpstime import GpsTime
 from ..ingest.rinex import RinexResult
 from ..ops import synth_cuda as sc
 from ..ops.synth_torch import (pack_plan, resolve_device,
-                               split_plan, synth_superframe_precise_async,
+                               synth_superframe_precise_async,
                                synth_superframe_tiled_async)
 from . import trace
-from .scheduler import Scheduler
+from .launch import (SF_BLOCKS, _to_host_async, device_view, launch_blocks,
+                     pack_group, unpack_rows)
+from .scheduler import Scheduler, copy_snapshot
 
 __all__ = ["IqStream"]
-
-SF_BLOCKS = 300          # 0.1 s blocks in a 30 s superframe
 
 # synthesis paths: the CUDA kernel (its plain twin on the CPU, None here),
 # and the tiled and f64 precise tensor paths of ops.synth_torch
@@ -44,90 +44,15 @@ MODES = {"kernel": None, "tiled": synth_superframe_tiled_async,
          "precise": synth_superframe_precise_async}
 
 
-class _Group(NamedTuple):
-    """Host-packed inputs for one dispatch group: the kernel's planes,
-    C/A tables and block->superframe map (mode "kernel"), or the
-    tables=True DevicePlans the tensor paths read."""
-
-    payload: tuple            # (prmi, prmf, ca_tabs, sf_map) or DevicePlans
-    block_samples: int        # samples per output row (sub-block)
-    n_orig: int               # samples per scenario block
-
-
 class _Handle(NamedTuple):
     """A dispatched group: its output (device tensor, or host tensor the
     D2H copy lands in), the CUDA event that completes it (None on the
-    CPU), and the group it came from."""
+    CPU), and the group it came from (the kernel's launch.Packed, or
+    the tables=True DevicePlans the tensor paths read)."""
 
     out: torch.Tensor
     done: torch.cuda.Event | None
-    group: _Group
-
-
-def launch_blocks(arrays, block_samples: int, device: torch.device,
-                  cuda_stream, to_host: bool, mesh=None):
-    """Stage one kernel launch's host inputs and launch it; returns
-    (out, done).
-
-    On the CPU the twin runs here and done is None.  On CUDA the planes
-    go up from pinned staging copies (unless they are device tensors
-    already), the kernel runs, and (to_host) its packed output comes
-    back into a fresh pinned host tensor, all enqueued on cuda_stream;
-    done is the event recorded after them, so
-    the caller returns at once and the next launch overlaps this one's
-    copy.  With a mesh (parallel.mesh) the launch runs sharded through
-    parallel.shard.launch_on_mesh, whose collectives block the calling
-    thread; every rank must make the same calls in the same order.
-    Shared by IqStream and parallel.MonteCarloBatch."""
-    if mesh is not None:
-        from ..parallel.shard import launch_on_mesh
-        out = launch_on_mesh(mesh, arrays, block_samples)
-        if cuda_stream is None or (to_host and out.device.type == "cpu"):
-            return out, None
-        # a gloo mesh on a card gathered on the host: as_device wants
-        # the words back on the card
-        return _to_host_async(out.to(device), cuda_stream, to_host)
-    prmi, prmf, ca_tabs, sf_map = arrays
-    if isinstance(prmi, torch.Tensor):
-        # inputs already on the card (MonteCarloBatch.plan_blocks with a
-        # device), their sf_map checked before it went up
-        out = sc.synth_blocks(prmi, prmf, ca_tabs, sf_map, block_samples)
-        return _to_host_async(out, cuda_stream, to_host)
-    args = [torch.from_numpy(np.ascontiguousarray(a))
-            for a in (prmi, prmf, ca_tabs, sf_map)]
-    if cuda_stream is None:
-        return sc.synth_blocks(*args, block_samples), None
-    sc.check_sf_map(sf_map, ca_tabs.shape[0])
-    with trace.child("transfer.pin_alloc",
-                     nbytes=sum(a.nbytes for a in args)):
-        args = [a.pin_memory() for a in args]
-    args = [a.to(device, non_blocking=True) for a in args]
-    out = sc.synth_blocks(*args, block_samples)
-    return _to_host_async(out, cuda_stream, to_host)
-
-
-def _to_host_async(out: torch.Tensor, cuda_stream, to_host: bool):
-    """(out, event) after an optional D2H of out into a fresh pinned
-    host tensor, both on cuda_stream; the consumer owns the buffer."""
-    if to_host:
-        with trace.child("transfer.pin_alloc", nbytes=out.nbytes):
-            host = torch.empty(out.shape, dtype=out.dtype,
-                               pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        out = host
-    done = torch.cuda.Event()
-    done.record(cuda_stream)
-    return out, done
-
-
-def device_view(out: torch.Tensor, done, device: torch.device):
-    """A launch's device output ordered on the consumer's current CUDA
-    stream (done is its event, None on the CPU)."""
-    if done is not None:
-        consumer = torch.cuda.current_stream(device)
-        consumer.wait_event(done)
-        out.record_stream(consumer)
-    return out
+    group: object
 
 
 class IqStream:
@@ -216,11 +141,6 @@ class IqStream:
         # THIS stream's dispatches (each leaves one LUT entry at the
         # kernel's f32 trunc, +-1 LSB on that block's dwell samples)
         self.patch_dropped = 0
-        # packed C/A tables keyed by the +-1 chip table's bytes: the
-        # channel allocation only changes at rise/set (minutes), so
-        # every superframe of a dispatch group usually shares ONE
-        # table and the bit-pack pass collapses to dict hits
-        self._ca_cache: dict = {}
         if rec is not None:
             rec.span("stream.init").open(t_init).close()
 
@@ -331,14 +251,8 @@ class IqStream:
                 g = self._groups
                 self._groups += 1
                 with trace.span(rec, "stream.plan", g, cpu=True) as sp:
-                    if self.superframes_per_dispatch > 1:
-                        plans = self.sched.plan_group(
-                            k, max_blocks, total_blocks=rem)
-                    else:
-                        todo = max_blocks if rem is None else \
-                            min(rem, max_blocks)
-                        plan = self.sched.plan(todo)
-                        plans = [] if plan is None else [plan]
+                    plans = self.sched.plan_group(k, max_blocks,
+                                                  total_blocks=rem)
                     blocks = sum(p.n_blocks for p in plans)
                     sp.n = n_sf = blocks / SF_BLOCKS
                 if not plans:
@@ -392,7 +306,7 @@ class IqStream:
                 taken += 1
                 _, handle, snap_after, g, n_sf = item
                 if as_device:
-                    out = self._device_view(handle)
+                    out = device_view(handle.out, handle.done, self.device)
                 else:
                     with trace.span(rec, "transfer.event_wait", g, n_sf):
                         if handle.done is not None:
@@ -438,84 +352,39 @@ class IqStream:
 
     # -- dispatch / fetch ------------------------------------------------
 
-    def _prepare_group(self, plans: list) -> _Group:
+    def _prepare_group(self, plans: list):
         """ALL host-side packing for one dispatch group (runs on the
-        planner thread): plan -> DevicePlan pack, and for the kernel the
-        parameter planes, C/A bit tables, and block->superframe map."""
-        dps = [pack_plan(p, tables=self._synth is not None) for p in plans]
-        n_orig = dps[0].block_samples
+        planner thread): launch.pack_group for the kernel, the
+        tables=True DevicePlans for the tensor paths."""
         if self._synth is not None:
-            return _Group(tuple(dps), n_orig, n_orig)
-        if self.split_k > 1:
-            with trace.child("packing.split",
-                             n=sum(dp.n_blocks for dp in dps) / SF_BLOCKS):
-                dps = [split_plan(dp, sc.MAX_BLOCK_SAMPLES) for dp in dps]
-        # one batched build for the whole group (bit-identical to
-        # per-plan builds + concat)
-        bp = sc.build_group_params(dps)
-        self.patch_dropped += bp.patch_dropped
-        ca_tabs = self._pack_ca_group([dp.ca2 for dp in dps])
-        sf_map = np.concatenate(
-            [np.full(dp.n_blocks, i, np.int32)
-             for i, dp in enumerate(dps)])
-        return _Group((bp.prmi, bp.prmf, ca_tabs, sf_map),
-                      dps[0].block_samples, n_orig)
+            return tuple(pack_plan(p, tables=True) for p in plans)
+        group = pack_group(plans)
+        self.patch_dropped += group.patch_dropped
+        return group
 
-    def _pack_ca_group(self, ca2s: list) -> np.ndarray:
-        """pack_ca_tables through the per-stream packed-table cache.
-
-        Output is bit-identical to sc.pack_ca_tables(ca2s) and keeps its
-        [len(ca2s), C, 1, 128] shape (one table slot per superframe) —
-        only the per-table packing work is deduplicated."""
-        packed = []
-        for ca2 in ca2s:
-            key = ca2.tobytes()
-            hit = self._ca_cache.pop(key, None)   # pop+reinsert = LRU:
-            if hit is None:                       # a table hit every group
-                if len(self._ca_cache) >= 64:     # but inserted early must
-                    self._ca_cache.pop(next(iter(self._ca_cache)))  # stay
-                hit = sc.pack_ca_tables([ca2])[0]
-            self._ca_cache[key] = hit
-            packed.append(hit)
-        return np.stack(packed)
-
-    def _dispatch(self, group: _Group, cuda_stream, as_device: bool):
+    def _dispatch(self, group, cuda_stream, as_device: bool):
         """Start synthesis of a prepared group (planner thread).  On CUDA
         everything is enqueued on the planner's stream and this returns
         at once; on the CPU the synthesis runs here.  The tensor paths
         run per superframe plan and concatenate into one output."""
         to_host = not as_device
         if self._synth is None:
-            out, done = launch_blocks(group.payload, group.block_samples,
+            out, done = launch_blocks(group.arrays, group.block_samples,
                                       self.device, cuda_stream, to_host,
                                       self.mesh)
             return _Handle(out, done, group)
-        parts = [self._synth(dp, self.device) for dp in group.payload]
+        parts = [self._synth(dp, self.device) for dp in group]
         out = parts[0] if len(parts) == 1 else torch.cat(parts)
         if cuda_stream is None:
             return _Handle(out, None, group)
         return _Handle(*_to_host_async(out, cuda_stream, to_host), group)
 
-    def _device_view(self, handle: _Handle) -> torch.Tensor:
-        """The raw output behind a handle, ordered on the consumer's
-        current CUDA stream — what as_device=True yields."""
-        return device_view(handle.out, handle.done, self.device)
-
     def _finish(self, handle: _Handle) -> np.ndarray:
         """Host int16 IQ [M, N, 2] of a handle whose copy has landed."""
-        g = handle.group
         if self._synth is not None:
             return handle.out.numpy()
-        iq = sc.unpack_iq(handle.out.numpy(), g.block_samples)
-        if self.split_k > 1:
-            # reassemble sub-blocks into scenario blocks; the last
-            # sub-block of each row extrapolated past the true block
-            # end (split_plan), so trim K*sub -> N.  Both are views of
-            # the unpacked rows: nothing is copied
-            k = self.split_k
-            iq = iq.reshape(iq.shape[0] // k, k * iq.shape[1], 2)
-            iq = iq[:, :g.n_orig]
-        return iq
+        g = handle.group
+        return unpack_rows(handle.out, g.block_samples, g.n_orig)
 
     # -- snapshot / resume ---------------------------------------------------
 
@@ -530,9 +399,7 @@ class IqStream:
         snap = getattr(self, "_yield_snap", None)
         if snap is not None and (getattr(self, "_planner_alive", False)
                                  or snap["jblk"] != self.sched.jblk):
-            return {"jblk": snap["jblk"], "ieph": snap["ieph"],
-                    "channel_state": {k: np.copy(v) for k, v in
-                                      snap["channel_state"].items()}}
+            return copy_snapshot(snap)
         return self.sched.snapshot()
 
     def restore(self, snap: dict) -> None:

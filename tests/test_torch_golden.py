@@ -140,7 +140,8 @@ def _streams(pair, mode, **kw):
     jg, tg = j_scen.setup_scenario(jr, None), t_scen.setup_scenario(tr, None)
     xyz = np.asarray(llh2xyz(TOKYO))
     j = JStream(jr, jg, j_scen.select_ephemeris_set(jr, jg), xyz,
-                fs=1_000_000.0, mode=mode, **kw)
+                fs=1_000_000.0, mode={"kernel": "pallas"}.get(mode, mode),
+                **kw)
     t = TStream(tr, tg, t_scen.select_ephemeris_set(tr, tg), xyz,
                 fs=1_000_000.0, mode=mode, device="cpu", **kw)
     return j, t
@@ -156,12 +157,29 @@ def test_tiled_matches_precise(rinex_pair):
     assert float(np.mean(a == b)) >= 0.999
 
 
-@pytest.mark.parametrize("mode", ["tiled", "precise"])
+@pytest.mark.parametrize("mode", ["tiled", "precise", "kernel"])
 def test_stream_mode_matches_jax(rinex_pair, mode):
     """IqStream(mode=...) on the CPU equals the JAX stream in the same
     mode: 9 blocks of 8192 samples, superframes of 3 blocks, dispatch
     groups ramping 1, 2 (the JAX stream's multi-plan handles), and the
-    as_device tensors concatenate to the same IQ."""
+    as_device tensors concatenate to the same IQ.  "kernel" (the JAX
+    stream's "pallas") runs one superframe a dispatch, the CLI's default
+    K=1, against K=2 and the JAX stream, from 2 blocks before a 30 s
+    boundary."""
+    if mode == "kernel":
+        j, t2 = _streams(rinex_pair, mode, block_samples=8192,
+                         superframes_per_dispatch=2)
+        _, t1 = _streams(rinex_pair, mode, block_samples=8192)
+        skip = t1.sched._blocks_to_boundary() - 2
+        runs = []
+        for s in (j, t1, t2):
+            s.fast_forward(skip)
+            runs.append(list(s.superframes(6, max_blocks=3)))
+        assert [[p.shape[0] for p in r] for r in runs] == \
+            [[2, 4], [2, 3, 1], [2, 4]]
+        want = np.concatenate(runs[0])
+        assert all(np.array_equal(np.concatenate(r), want) for r in runs)
+        return
     j, t = _streams(rinex_pair, mode, block_samples=8192,
                     superframes_per_dispatch=2)
     a = list(j.superframes(9, max_blocks=3))

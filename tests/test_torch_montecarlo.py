@@ -135,7 +135,7 @@ def test_mc_boundary_branch_matches_individual(scenario, j_scenario):
     mc = MonteCarloBatch(rin, g0b, ieph, xyz, fs=FS, block_samples=BS)
     batch = mc.generate(8, "cpu")
     assert mc.nav_cache.hits > 0, "shared nav cache never hit"
-    assert mc.control_seconds > 0 and mc.patch_dropped == 0
+    assert mc.patch_dropped == 0
 
     for b in range(xyz.shape[0]):
         solo = IqStream(rin, g0b, ieph, xyz[b], fs=FS, block_samples=BS,

@@ -3,7 +3,9 @@
 pack_plan, split_plan, build_group_params (gain nudge, patch words and
 the patch-slot overflow count), pack_ca_tables, unpack_iq and the sin/cos
 pair tables are numpy on both sides and must agree byte for byte: the
-planes one package builds feed the other's kernel.
+planes one package builds feed the other's kernel.  runtime.launch's
+pack_group, which dedupes a group's C/A tables, is held to the JAX
+stream's layout of one table a superframe.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from pluto_gps_sim_tpu.constants import MAX_CHAN, R2D
 from pluto_gps_sim_tpu.ingest import read_rinex2
@@ -24,6 +27,7 @@ from pluto_gps_sim_tpu.runtime.scheduler import Scheduler, SuperframePlan
 
 from pluto_gps_sim_tpu_torch.ops import synth_cuda as sc
 from pluto_gps_sim_tpu_torch.ops import synth_torch as st
+from pluto_gps_sim_tpu_torch.runtime.launch import pack_group
 
 TOKYO = np.array([35.681298 / R2D, 139.766247 / R2D, 10.0])
 
@@ -106,11 +110,39 @@ def test_split_plan_matches(scenario, n, cap):
     assert b.block_samples <= cap
 
 
-@pytest.mark.parametrize("nudge", [True, False])
+@pytest.mark.parametrize("nudge", [True, False,
+                                   pytest.param(None, id="pack_group")])
 def test_build_group_params_matches(scenario, nudge):
     """A real three-superframe dispatch group (sf boundaries, rise/set
-    bookkeeping, per-superframe nav-bit tables)."""
+    bookkeeping, per-superframe nav-bit tables).  nudge None: the group
+    runtime.launch.pack_group packs from three one-block superframes
+    around the first 30 s boundary whose re-allocation changes the
+    channels' satellites: its planes are build_group_params' (nudged),
+    its C/A tables the two distinct ones, and the twin reads the same
+    words through its sf_map as through one table a superframe."""
     rin, g0, ieph, xyz = scenario
+    if nudge is None:
+        sched = Scheduler(rin, g0, ieph, xyz, fs=1_000_000.0,
+                          block_samples=8192)
+        for _ in range(100):
+            sched.skip(sched._blocks_to_boundary() - 1)
+            plans = sched.plan_group(3, 1)
+            if len({p.ca2.tobytes() for p in plans}) > 1:
+                break
+        got = pack_group(plans)
+        prmi, prmf, ca_tabs, sf_map = got.arrays
+        assert ca_tabs.shape[0] == 2 and sf_map.tolist() == [0, 1, 1]
+        assert (got.block_samples, got.n_orig) == (8192, 8192)
+        assert_params_equal(
+            sc.BlockParams(prmi, prmf, got.patch_dropped),
+            sc.build_group_params([st.pack_plan(p, tables=False)
+                                   for p in plans]))
+        one_per_sf = (prmi, prmf, sc.pack_ca_tables([p.ca2 for p in plans]),
+                      np.arange(3, dtype=np.int32))
+        words = [sc.synth_blocks_plain(*map(torch.from_numpy, a), 8192)
+                 for a in (got.arrays, one_per_sf)]
+        assert torch.equal(*words)
+        return
     plans = Scheduler(rin, g0, ieph, xyz, fs=2_600_000.0).plan_group(3, 40)
     assert len(plans) == 3
     dps = [jj.pack_plan(p, tables=False) for p in plans]
