@@ -23,8 +23,9 @@ exits non-zero):
      500,000 (5 MHz);
   3. the CLI's main path on cuda: -s 2600000 -d 300
      --dispatch-superframes 8 --sink null --stats (3,000 blocks);
-     asserts the kernel launched, no patch word was dropped and every
-     block was produced, and prints the real-time factor;
+     asserts the kernel launched, each group's planes were built on the
+     card by one build_params launch, no patch word was dropped and
+     every block was produced, and prints the real-time factor;
   4. -d 60 to a file through the CLI, then blocks 0-1 and 300-301
      recomputed with IqStream(device="cpu") must equal the file;
   5. golden: the f64 precise path on the card equals its CPU run word
@@ -32,7 +33,8 @@ exits non-zero):
      array_equal at 4 blocks and within the short gate (>= 1-2e-6
      exact, max err <= 8) on a 300-block superframe; the tiled path on
      the card equals its CPU run (4 blocks) and tracks precise (>= 0.999
-     exact, SNR >= 70 dB) over the 300 blocks; both paths timed;
+     exact, SNR >= 70 dB) over the 300 blocks; both paths timed; the
+     tensor paths' streams launch no build_params;
  5b. long run (the JAX package's device gates), each stream superframe
      held on the card to a shadow Scheduler's plans: 4,500 blocks at
      2.6 MHz across the ephemeris-set rollover, K=8, against the tiled
@@ -44,6 +46,11 @@ exits non-zero):
      CSV) against the precise path (equal at 4 blocks, the short gate at
      300) and the CLI's -u run; the kernel against precise at 5 MHz,
      5 MHz with the ionosphere off and 10 MHz split (split and unsplit);
+     each kernel stream builds every dispatch group's planes on the card,
+     one build_params launch a group; in the rollover and in a K=8
+     kernel stream of 2,100 blocks at 5 MHz each group's card build
+     equals the host build of the same plans word for word (planes,
+     tables, sf_map and patch_dropped);
   6. Monte-Carlo, held: B=4 receivers a few metres apart, 8 blocks from
      0.4 s before a 30 s boundary; each receiver's rows equal a solo
      IqStream(mode="kernel") on the card word for word;
@@ -671,6 +678,7 @@ def phase_golden(scen) -> dict:
     import numpy as np
     import torch
 
+    from pluto_gps_sim_tpu_torch.ops import synth_cuda as sc
     from pluto_gps_sim_tpu_torch.ops.synth_torch import (
         pack_plan, synth_superframe_tiled_async)
     from pluto_gps_sim_tpu_torch.runtime.scheduler import Scheduler
@@ -694,11 +702,14 @@ def phase_golden(scen) -> dict:
         raise AssertionError("tiled on the card differs from tiled on the "
                              "CPU (4 blocks)")
     for mode in ("tiled", "precise"):     # the stream's planner path
+        before = sc.build_params_launch_count()
         got = IqStream(rin, g0, ieph, xyz, fs=FS, mode=mode,
                        device="cuda").generate(4)
         if not np.array_equal(got, p4_cpu.numpy()):
             raise AssertionError(f"IqStream(mode={mode!r}) on the card "
                                  "differs from precise (4 blocks)")
+        # the tensor paths read no planes: the host build, no card build
+        _check_card_builds(f"IqStream(mode={mode!r})", before, 0)
     _phase("golden 4 blocks", t0, "precise cuda == cpu, kernel == precise, "
            "tiled cuda == cpu, stream tiled/precise == precise (word for "
            "word)")
@@ -761,6 +772,72 @@ def _diagnose(plan, got, block: int) -> dict:
                          "tiled_vs_precise": (tiled, prec)}.items():
         out[name] = _diff(x, y)
     return out
+
+
+def _check_card_builds(name: str, before: int, groups: int) -> int:
+    """Raise unless build_params launched once for each of `groups`
+    dispatch groups since the count read `before`; returns the count."""
+    from pluto_gps_sim_tpu_torch.ops import synth_cuda as sc
+    now = sc.build_params_launch_count()
+    if now - before != groups:
+        raise AssertionError(f"{name}: {now - before} build_params launches "
+                             f"for {groups} dispatch groups")
+    return now
+
+
+@contextlib.contextmanager
+def _held_card_builds():
+    """While open, each dispatch group that an IqStream builds on the card
+    (runtime.launch.pack_group with a device, as _prepare_group calls it)
+    is packed again on the host from the same plans.  Yields a record of
+    the groups held, the words compared, the words that differ (planes,
+    C/A tables, sf_map; an array of another shape or dtype counts whole)
+    and the groups whose patch_dropped or row lengths differ."""
+    import numpy as np
+
+    from pluto_gps_sim_tpu_torch.runtime import stream as stream_mod
+    real = stream_mod.pack_group
+    rec = {"groups": 0, "words": 0, "words_differ": 0, "groups_differ": 0}
+
+    def held(plans, device=None):
+        got = real(plans, device)
+        if device is None:
+            return got
+        want = real(plans)
+        for a, b in zip(got.arrays, want.arrays, strict=True):
+            a, b = a.cpu().numpy(), np.asarray(b)
+            rec["words"] += b.size
+            if a.shape != b.shape or a.dtype != b.dtype:
+                rec["words_differ"] += max(a.size, b.size)
+            else:
+                word = f"u{a.dtype.itemsize}"
+                rec["words_differ"] += int(np.count_nonzero(
+                    a.view(word) != b.view(word)))
+        rec["groups_differ"] += (
+            int(got.patch_dropped) != want.patch_dropped
+            or (got.block_samples, got.n_orig)
+            != (want.block_samples, want.n_orig))
+        rec["groups"] += 1
+        return got
+
+    stream_mod.pack_group = held
+    try:
+        yield rec
+    finally:
+        stream_mod.pack_group = real
+
+
+def _check_held(name: str, rec: dict, groups: int) -> str:
+    """Raise unless `rec` (_held_card_builds) held `groups` groups with
+    no word and no group differing; returns the phase line's figures."""
+    figures = (f"card build == host build: {rec['groups']} groups, "
+               f"{rec['words_differ']} of {rec['words']} words differ, "
+               f"{rec['groups_differ']} groups' patch_dropped or rows "
+               "differ")
+    if rec["groups"] != groups or rec["words_differ"] \
+            or rec["groups_differ"]:
+        raise AssertionError(f"{name}: {figures} (of {groups} groups)")
+    return figures
 
 
 def _hold_to_shadow(stream, shadow, n_blocks: int, ref,
@@ -826,6 +903,7 @@ def _long_rollover(scen) -> dict:
     of 1, 2, 4 and 8 superframes), each superframe held to the tiled
     path; >= 1-1e-8 exact, max err <= 8, no patch word dropped."""
     from pluto_gps_sim_tpu_torch.models.gpstime import GpsTime, inc_gps_time
+    from pluto_gps_sim_tpu_torch.ops import synth_cuda as sc
     from pluto_gps_sim_tpu_torch.ops.synth_torch import (
         synth_superframe_tiled_async)
     from pluto_gps_sim_tpu_torch.runtime import (select_ephemeris_set,
@@ -840,8 +918,12 @@ def _long_rollover(scen) -> dict:
     stream = IqStream(rin, g0, ieph, xyz, fs=FS, mode="kernel",
                       device="cuda", superframes_per_dispatch=8)
     shadow = Scheduler(rin, g0, ieph, xyz, fs=FS)
-    r = _hold_to_shadow(stream, shadow, ROLLOVER_BLOCKS,
-                        synth_superframe_tiled_async)
+    before = sc.build_params_launch_count()
+    with _held_card_builds() as held:
+        r = _hold_to_shadow(stream, shadow, ROLLOVER_BLOCKS,
+                            synth_superframe_tiled_async)
+    _check_card_builds("rollover", before, len(r["groups"]))
+    builds = _check_held("rollover", held, len(r["groups"]))
     _print_diagnoses("rollover", r)
     exact = 1.0 - r["mismatches"] / r["components"]
     r.update(exact=exact, ieph=[int(ieph), int(stream.sched.ieph),
@@ -851,7 +933,7 @@ def _long_rollover(scen) -> dict:
                f"{stream.sched.ieph} (shadow {shadow.ieph}); patch_dropped "
                f"{stream.patch_dropped}; kernel vs tiled exact {exact:.10%} "
                f"({r['mismatches']} of {r['components']}), max err "
-               f"{r['max_err']}")
+               f"{r['max_err']}; {builds}")
     if r["groups"] != [1, 2, 4, 8] or r["blocks"] != ROLLOVER_BLOCKS:
         raise AssertionError(f"rollover gate: {figures}")
     if (stream.sched.ieph, shadow.ieph) != (1, 1):
@@ -872,6 +954,7 @@ def _long_soak(scen) -> dict:
     kernel stream whose first block equals the original's next one."""
     import torch
 
+    from pluto_gps_sim_tpu_torch.ops import synth_cuda as sc
     from pluto_gps_sim_tpu_torch.ops.synth_torch import (
         synth_superframe_tiled_async)
     from pluto_gps_sim_tpu_torch.runtime.scheduler import Scheduler
@@ -890,8 +973,10 @@ def _long_soak(scen) -> dict:
         elif "snap" not in splice and done >= SOAK_BLOCKS // 2:
             splice["snap"], splice["at"] = stream.snapshot(), done
 
+    before = sc.build_params_launch_count()
     r = _hold_to_shadow(stream, shadow, SOAK_BLOCKS,
                         synth_superframe_tiled_async, at_group)
+    before = _check_card_builds("hour soak", before, len(r["groups"]))
     _print_diagnoses("hour soak", r)
     r.update(ieph=[int(ieph), int(stream.sched.ieph), int(shadow.ieph)],
              patch_dropped=stream.patch_dropped, snapshot_at=splice["at"])
@@ -914,6 +999,7 @@ def _long_soak(scen) -> dict:
                        **kw)
     resumed.restore(snap)
     first = torch.cat(list(resumed.superframes(1, as_device=True)))
+    _check_card_builds("hour soak, resumed", before, 1)
     if not torch.equal(first, splice["next_row"]):
         raise AssertionError(
             f"hour soak: the stream resumed at block {snap['jblk']} differs "
@@ -943,6 +1029,7 @@ def _long_motion(scen) -> dict:
     import torch
 
     from pluto_gps_sim_tpu_torch.ingest import read_user_motion
+    from pluto_gps_sim_tpu_torch.ops import synth_cuda as sc
     from pluto_gps_sim_tpu_torch.ops.synth_torch import (
         pack_plan, synth_superframe_precise_async)
     from pluto_gps_sim_tpu_torch.runtime.scheduler import Scheduler
@@ -953,7 +1040,9 @@ def _long_motion(scen) -> dict:
     assert xyz.shape == (300, 3), xyz.shape
     kw = dict(fs=FS, static_mode=False)
     s4 = IqStream(rin, g0, ieph, xyz, mode="kernel", device="cuda", **kw)
+    before = sc.build_params_launch_count()
     k4 = _iq_on_card(torch.cat(list(s4.superframes(4, as_device=True))))
+    before = _check_card_builds("motion, 4 blocks", before, 1)
     p4 = _precise_iq(pack_plan(Scheduler(rin, g0, ieph, xyz, **kw).plan(4)),
                      "cuda")
     if not torch.equal(k4, p4):
@@ -965,6 +1054,8 @@ def _long_motion(scen) -> dict:
                       superframes_per_dispatch=8, **kw)
     r = _hold_to_shadow(stream, Scheduler(rin, g0, ieph, xyz, **kw), 300,
                         synth_superframe_precise_async)
+    before = _check_card_builds("motion, 300 blocks", before,
+                                len(r["groups"]))
     _print_diagnoses("motion", r)
     exact = 1.0 - r["mismatches"] / r["components"]
     if r["blocks"] != 300 or stream.patch_dropped or exact < 1 - 2e-6 \
@@ -976,6 +1067,7 @@ def _long_motion(scen) -> dict:
                     "2600000", "-d", "30", "--dispatch-superframes", "8",
                     "--sink", "null", "--stats", "--device", "cuda"])
     assert rc == 0, f"CLI -u exited {rc}"
+    _check_card_builds("CLI -u -d 30", before, 1)
     line = next(ln for ln in err.splitlines() if ln.startswith("sink stats"))
     stats = json.loads(line.split("sink stats: ", 1)[1])
     if stats["patch_dropped"] or stats["blocks"] != 300:
@@ -996,13 +1088,16 @@ def _long_rates(scen) -> dict:
     precise path within the short gate at 5 MHz (4 blocks), at 5 MHz
     with the ionosphere off (as the CLI's -i sets it), and at 10 MHz
     split into sub-blocks, against the split precise path and, its rows
-    reassembled, against the unsplit precise path."""
+    reassembled, against the unsplit precise path; then a K=8 kernel
+    stream of 2,100 blocks at 5 MHz whose groups' card builds equal the
+    host build word for word."""
     import numpy as np
 
     from pluto_gps_sim_tpu_torch.ingest import read_rinex2
     from pluto_gps_sim_tpu_torch.ops import synth_cuda as sc
     from pluto_gps_sim_tpu_torch.ops.synth_torch import pack_plan, split_plan
     from pluto_gps_sim_tpu_torch.runtime.scheduler import Scheduler
+    from pluto_gps_sim_tpu_torch.runtime.stream import IqStream
     rin, g0, ieph, xyz = scen
     t0 = time.perf_counter()
     out = {}
@@ -1031,9 +1126,22 @@ def _long_rates(scen) -> dict:
                        2)[:, :dp10.block_samples]
     out["fs=10MHz vs unsplit"] = _short_gate(
         "fs=10MHz vs unsplit precise", whole, _precise_iq(dp10, "cuda"))
+    # a K=8 kernel stream at 5 MHz, near the Q24 limit: groups of 1, 2
+    # and 4 superframes, each built on the card and held to the host build
+    stream = IqStream(rin, g0, ieph, xyz, fs=5e6, mode="kernel",
+                      device="cuda", superframes_per_dispatch=8)
+    before = sc.build_params_launch_count()
+    with _held_card_builds() as held:
+        sizes = [int(g.shape[0]) for g in stream.superframes(
+            2100, as_device=True)]
+    _check_card_builds("fs=5MHz stream", before, len(sizes))
+    if sizes != [300, 600, 1200]:
+        raise AssertionError(f"fs=5MHz stream: groups of {sizes} blocks")
+    builds = _check_held("fs=5MHz stream", held, len(sizes))
     _phase("long_run 5/10 MHz kernel vs precise", t0, "; ".join(
         f"{name} exact {g['exact']:.8%} max err {g['max_err']}"
-        for name, g in out.items()))
+        for name, g in out.items()) + f"; fs=5MHz stream K=8 {builds}")
+    out["fs=5MHz stream"] = dict(held, patch_dropped=stream.patch_dropped)
     return out
 
 
@@ -1557,10 +1665,13 @@ def phase_main_path() -> tuple[int, float]:
                     "--sink", "null", "--stats", "--device", "cuda"])
     wall = time.perf_counter() - t0
     launches = sc.launch_count()
+    builds = sc.build_params_launch_count()
     assert rc == 0, f"CLI exited {rc}"
     line = next(ln for ln in err.splitlines() if ln.startswith("sink stats"))
     stats = json.loads(line.split("sink stats: ", 1)[1])
     assert launches > 0, "the main path never launched the kernel"
+    # one card build a group, as one kernel launch a group
+    assert builds == launches, (builds, launches)
     assert stats["patch_dropped"] == 0, stats
     assert stats["blocks"] == 3000, stats
     assert stats["samples"] == 3000 * TIMED_SAMPLES, stats
@@ -1631,6 +1742,7 @@ def main() -> int:
     sc.reset_launch_count()
     long_run = phase_long_run(scen)
     long_launches = sc.launch_count()
+    long_builds = sc.build_params_launch_count()
     assert long_launches > 0, "the long-run gates never launched the kernel"
     phase_mc_held(scen)
     mc_launches, mc_err, mc = phase_mc_full(scen)
@@ -1655,9 +1767,11 @@ def main() -> int:
         "library_ms": None}, {
         "name": "build_params", "route": "cuda",
         "source": "pluto_gps_sim_tpu_torch/ops/csrc/build_params.cu",
-        "replaces": None, "paths": ["montecarlo"],
-        "path_launches": {"montecarlo": mc["build_params_launches"]},
-        "launches": mc["build_params_launches"] + build["launches"],
+        "replaces": None, "paths": ["stream", "long_run", "montecarlo"],
+        "path_launches": {"stream": launches, "long_run": long_builds,
+                          "montecarlo": mc["build_params_launches"]},
+        "launches": launches + long_builds + mc["build_params_launches"]
+        + build["launches"],
         "max_abs_err": build["max_abs_err"],
         "ms": build["ms"], "plain_ms": min(build["host_build_s"]) * 1e3,
         "bound_ms": build["bound_ms"], "bound_by": "bytes",

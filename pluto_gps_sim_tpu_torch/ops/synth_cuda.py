@@ -892,9 +892,11 @@ def build_params(fields: PlanFields, bits_tabs, bits_map,
     where the host build refuses them, or where the kernel could not
     read them.  With no device, or a CPU one, the result is the plain
     version, the host build, on the CPU.  With a CUDA device the inputs
-    go up (without waiting, from pinned tensors) and the CUDA kernel
-    (csrc/build_params.cu) runs on the device's current stream; nothing
-    is synchronized.  There is no other fallback."""
+    go up from pinned memory (pageable ones are staged there first: a
+    pageable upload may hold the calling thread until the stream's
+    earlier work is done) and the CUDA kernel (csrc/build_params.cu) runs
+    on the device's current stream; nothing is synchronized.  There is
+    no other fallback."""
     block_samples = int(block_samples)
     args = _build_args(fields, bits_tabs, bits_map)
     if args[0].device.type != "cpu":
@@ -912,7 +914,9 @@ def build_params(fields: PlanFields, bits_tabs, bits_map,
         raise ValueError(f"build_params runs on cuda or cpu, not {dev}")
     with torch.cuda.device(dev):
         act, real, ints, bits_tabs, bits_map = (
-            t.to(dev, non_blocking=True) for t in args)
+            (t if t.is_pinned() else t.pin_memory()).to(dev,
+                                                        non_blocking=True)
+            for t in args)
         return _launch_build_params(PlanFields(act, real, ints, fields.delt),
                                     bits_tabs, bits_map, block_samples)
 

@@ -59,8 +59,8 @@ from ..ops.epoch import (solve_ranges, solve_ranges_batch,
                          solve_ranges_batch_lean)
 from ..ops.synth_torch import resolve_device
 from ..runtime import trace
-from ..runtime.launch import (device_view, launch_blocks, pack_group,
-                              unpack_rows)
+from ..runtime.launch import (DroppedCount, device_view, launch_blocks,
+                              pack_group, unpack_rows)
 from ..runtime.scheduler import Scheduler, _gather_eph
 
 __all__ = ["MonteCarloBatch"]
@@ -117,8 +117,7 @@ class MonteCarloBatch:
                       nav_cache=self.nav_cache, alloc_precomp=pre[b])
             for b in range(self.B)]
         self.block_samples = self.scheds[0].block_samples
-        self._dropped = 0            # dropped gain-trunc patches, counted
-        self._dropped_dev = []       # ... and still on the card, per launch
+        self._dropped = DroppedCount()   # dropped gain-trunc patches
         self._streams: dict = {}     # the batch's CUDA stream, per device
         self._last_key = None        # the last superframes() call's key
         self._lookahead: _Lookahead | None = None
@@ -154,11 +153,7 @@ class MonteCarloBatch:
         batch planned for a call so far: a lookahead's batch counts once
         a call takes it, and never while pending or once discarded.
         Card builds count on the card; reading this waits for them."""
-        if self._dropped_dev:
-            torch.cuda.synchronize(self._dropped_dev[0].device)
-            self._dropped += sum(int(t) for t in self._dropped_dev)
-            self._dropped_dev.clear()
-        return self._dropped
+        return self._dropped.value
 
     def plan_blocks(self, n_blocks: int, device=None):
         """Plan n_blocks for every trajectory; returns kernel-ready args
@@ -196,7 +191,7 @@ class MonteCarloBatch:
             if ahead:
                 la.dropped.append(packed.patch_dropped)
             else:
-                self._count_dropped(packed.patch_dropped)
+                self._dropped.add(packed.patch_dropped)
             return packed.arrays
 
     def _plan_blocks(self, n_blocks: int) -> list:
@@ -279,12 +274,6 @@ class MonteCarloBatch:
         # receiver-major rows: receiver b's plans, then receiver b+1's
         return [p for plans in per_b for p in plans]
 
-    def _count_dropped(self, dropped) -> None:
-        if isinstance(dropped, torch.Tensor):
-            self._dropped_dev.append(dropped)
-        else:
-            self._dropped += dropped
-
     def _stream(self, dev: torch.device):
         """The batch's CUDA stream on dev: its builds, a lookahead's
         included, and its launches run there in order."""
@@ -333,7 +322,7 @@ class MonteCarloBatch:
         if hit:
             self.lookahead_hits += 1
             for dropped in la.dropped:
-                self._count_dropped(dropped)
+                self._dropped.add(dropped)
             return la.planes
         self.lookahead_misses += 1
         if la.snap is not None:
@@ -391,7 +380,10 @@ class MonteCarloBatch:
         total = self.B * n_blocks
         n = self.block_samples
         cuda_stream = self._stream(dev) if dev.type == "cuda" else None
-        planes = self._settle_lookahead(key)
+        with torch.cuda.stream(cuda_stream):
+            # a taken lookahead's counts are added on the stream that
+            # built them
+            planes = self._settle_lookahead(key)
         if planes is None and mesh is not None:
             # a mesh shards host arrays (parallel.shard.launch_on_mesh)
             planes = self.plan_blocks(n_blocks)

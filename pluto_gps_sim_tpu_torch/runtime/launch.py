@@ -13,6 +13,7 @@ multi-process dryrun all go through here.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -23,8 +24,8 @@ from ..ops import synth_cuda as sc
 from ..ops.synth_torch import pack_plan, split_plan
 from . import trace
 
-__all__ = ["Packed", "SF_BLOCKS", "device_view", "launch_blocks",
-           "pack_group", "unpack_rows"]
+__all__ = ["DroppedCount", "Packed", "SF_BLOCKS", "device_view",
+           "launch_blocks", "pack_group", "unpack_rows"]
 
 SF_BLOCKS = 300          # 0.1 s blocks in a 30 s superframe
 
@@ -36,6 +37,48 @@ class Packed(NamedTuple):
     block_samples: int       # samples per kernel row (sub-block if split)
     n_orig: int              # samples per scenario block
     patch_dropped: object    # an int, or a one-element tensor on the card
+
+
+class DroppedCount:
+    """Gain-trunc patch words dropped to the per-block slot cap, summed
+    over the Packed.patch_dropped added: ints of host builds at once,
+    one-element tensors of card builds into one running tensor a device,
+    without waiting for the card.  A card count is added on the current
+    stream, which must be the one that built it (after the stream that
+    added last, where that differs).  Reading `value` waits for the
+    card.  Safe across threads."""
+
+    def __init__(self):
+        self._n = 0
+        self._card: dict = {}    # device -> (running tensor, its stream)
+        self._lock = threading.Lock()
+
+    def add(self, dropped) -> None:
+        with self._lock:
+            if not (isinstance(dropped, torch.Tensor) and dropped.is_cuda):
+                self._n += int(dropped)
+                return
+            dev = dropped.device
+            stream = torch.cuda.current_stream(dev)
+            held = self._card.get(dev)
+            if held is None:
+                total = dropped.to(torch.int64)
+            else:
+                run, last = held
+                if last != stream:
+                    stream.wait_stream(last)
+                    run.record_stream(stream)
+                total = run + dropped
+            self._card[dev] = (total, stream)
+
+    @property
+    def value(self) -> int:
+        with self._lock:
+            for dev, (run, _) in self._card.items():
+                torch.cuda.synchronize(dev)
+                self._n += int(run)
+            self._card.clear()
+            return self._n
 
 
 def _dedupe(tables: list, counts: list):
@@ -69,7 +112,9 @@ def pack_group(plans: list, device=None) -> Packed:
     plans' raw fields are concatenated into pinned arrays, their nav-bit
     tables deduped the same way, and sc.build_params builds the planes
     there in one launch on the current stream, nothing synchronized;
-    it refuses blocks past the Q24 range with a ValueError."""
+    it refuses blocks past the Q24 range with a ValueError.  Every
+    upload of the card build goes from pinned memory, so none holds the
+    calling thread behind the stream's earlier work."""
     n = plans[0].block_samples
     dev = None if device is None else torch.device(device)
     on_card = dev is not None and dev.type != "cpu"
@@ -108,8 +153,8 @@ def pack_group(plans: list, device=None) -> Packed:
     ca_tabs = sc.pack_ca_tables(ca_tabs)
     if on_card:
         sc.check_sf_map(sf_map, ca_tabs.shape[0])
-        ca_tabs, sf_map = (torch.from_numpy(a).to(dev, non_blocking=True)
-                           for a in (ca_tabs, sf_map))
+        ca_tabs, sf_map = (torch.from_numpy(a).pin_memory().to(
+            dev, non_blocking=True) for a in (ca_tabs, sf_map))
     return Packed((prmi, prmf, ca_tabs, sf_map), sub, n, dropped)
 
 

@@ -32,8 +32,8 @@ from ..ops.synth_torch import (pack_plan, resolve_device,
                                synth_superframe_precise_async,
                                synth_superframe_tiled_async)
 from . import trace
-from .launch import (SF_BLOCKS, _to_host_async, device_view, launch_blocks,
-                     pack_group, unpack_rows)
+from .launch import (SF_BLOCKS, DroppedCount, _to_host_async, device_view,
+                     launch_blocks, pack_group, unpack_rows)
 from .scheduler import Scheduler, copy_snapshot
 
 __all__ = ["IqStream"]
@@ -42,6 +42,16 @@ __all__ = ["IqStream"]
 # and the tiled and f64 precise tensor paths of ops.synth_torch
 MODES = {"kernel": None, "tiled": synth_superframe_tiled_async,
          "precise": synth_superframe_precise_async}
+
+
+def builds_on_card(device: torch.device, mesh, split_k: int) -> bool:
+    """Whether a kernel-path IqStream builds a dispatch group's parameter
+    planes on the card (launch.pack_group with the device: the
+    build_params kernel on the planner's CUDA stream) rather than on the
+    host: on a CUDA device, unsharded, its blocks unsplit (within the
+    kernel's Q24 range).  A mesh shards host planes, and split blocks
+    are cut into sub-rows on the host (split_plan)."""
+    return device.type == "cuda" and mesh is None and split_k == 1
 
 
 class _Handle(NamedTuple):
@@ -137,12 +147,19 @@ class IqStream:
         # superframes()); sub_block_samples matches what split_plan
         # derives per dispatch
         self.sub_block_samples = -(-n // self.split_k)
-        # gain-trunc patch words dropped to the per-block slot cap by
-        # THIS stream's dispatches (each leaves one LUT entry at the
-        # kernel's f32 trunc, +-1 LSB on that block's dwell samples)
-        self.patch_dropped = 0
+        # the prepared groups' dropped patch words (patch_dropped)
+        self._dropped = DroppedCount()
         if rec is not None:
             rec.span("stream.init").open(t_init).close()
+
+    @property
+    def patch_dropped(self) -> int:
+        """Gain-trunc patch words dropped to the per-block slot cap by
+        THIS stream's dispatch groups (each leaves one LUT entry at the
+        kernel's f32 trunc, +-1 LSB on that block's dwell samples).
+        Groups built on the card count there; reading this waits for
+        them."""
+        return self._dropped.value
 
     @staticmethod
     def dispatch_ramp(k: int) -> Iterator[int]:
@@ -353,13 +370,20 @@ class IqStream:
     # -- dispatch / fetch ------------------------------------------------
 
     def _prepare_group(self, plans: list):
-        """ALL host-side packing for one dispatch group (runs on the
-        planner thread): launch.pack_group for the kernel, the
+        """ALL packing for one dispatch group (runs on the planner
+        thread): launch.pack_group for the kernel, its planes built on
+        the card where builds_on_card says so (enqueued on the planner's
+        CUDA stream, nothing waited for), else on the host; the
         tables=True DevicePlans for the tensor paths."""
         if self._synth is not None:
             return tuple(pack_plan(p, tables=True) for p in plans)
-        group = pack_group(plans)
-        self.patch_dropped += group.patch_dropped
+        if builds_on_card(self.device, self.mesh, self.split_k):
+            n_sf = sum(p.n_blocks for p in plans) / SF_BLOCKS
+            with trace.child("packing.card_build", n=n_sf):
+                group = pack_group(plans, self.device)
+        else:
+            group = pack_group(plans)
+        self._dropped.add(group.patch_dropped)
         return group
 
     def _dispatch(self, group, cuda_stream, as_device: bool):

@@ -1,4 +1,4 @@
-"""The parameter planes of a Monte-Carlo batch, built by
+"""The parameter planes of a Monte-Carlo batch and of a stream, built by
 ops.synth_cuda.build_params, against the host build.
 
 CPU tests: MonteCarloBatch.plan_blocks(n) and plan_blocks(n,
@@ -7,12 +7,16 @@ device="cpu") return the planes, C/A tables and sf_map of the host build
 one build_group_params) byte for byte, across a 30 s boundary and through
 the union re-solve branch; the wrapper's plain version equals
 build_group_params on plans forced through the gain nudge, patch words
-and the slot overflow; and the wrapper refuses what the host build
-refuses.
+and the slot overflow; the wrapper refuses what the host build refuses;
+IqStream builds on the card only on the kernel path on a CUDA device,
+unsharded and unsplit; and its patch_dropped sums host and card counts
+into an int.
 
 Tests marked `cuda` hold the CUDA kernel to the host build byte for byte
-on a card, and a batch that plans ahead on the card to one that does not,
-and skip elsewhere.  Run them on a machine with a CUDA card and
+on a card, a batch that plans ahead on the card to one that does not, and
+a stream whose planes are built on the card to the same stream built on
+the host, and sum dropped patch words added on two CUDA streams, and skip
+elsewhere.  Run them on a machine with a CUDA card and
 nvcc from the repository root (this file imports no JAX, so the suite's
 conftest can be left out):
 
@@ -30,12 +34,16 @@ from pluto_gps_sim_tpu_torch.constants import MAX_CHAN, R2D
 from pluto_gps_sim_tpu_torch.ingest import read_rinex2
 from pluto_gps_sim_tpu_torch.models.cacode import CA_TABLE
 from pluto_gps_sim_tpu_torch.models.geodesy import llh2xyz
-from pluto_gps_sim_tpu_torch.models.gpstime import inc_gps_time
+from pluto_gps_sim_tpu_torch.models.gpstime import GpsTime, inc_gps_time
 from pluto_gps_sim_tpu_torch.ops import synth_cuda as sc
 from pluto_gps_sim_tpu_torch.ops.synth_torch import pack_plan
 from pluto_gps_sim_tpu_torch.parallel import MonteCarloBatch
 from pluto_gps_sim_tpu_torch.runtime import scenario as scen
-from pluto_gps_sim_tpu_torch.runtime.scheduler import SuperframePlan
+from pluto_gps_sim_tpu_torch.runtime import stream as stream_mod
+from pluto_gps_sim_tpu_torch.runtime.launch import DroppedCount, pack_group
+from pluto_gps_sim_tpu_torch.runtime.scheduler import (Scheduler,
+                                                       SuperframePlan)
+from pluto_gps_sim_tpu_torch.runtime.stream import IqStream, builds_on_card
 
 FS = 1_000_000.0
 BS = 16_384
@@ -244,6 +252,78 @@ def test_build_params_takes_host_inputs():
         sc.build_params(fields, bits, bits_map, 65536, device="meta")
 
 
+@pytest.mark.parametrize("mesh", [None, "mesh"])
+@pytest.mark.parametrize("fs", [2.6e6, 5e6, 10e6])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_stream_builds_on_card_rule(scenario, device, fs, mesh):
+    """A kernel stream builds its planes on the card on a CUDA device,
+    without a mesh, its blocks unsplit (2.6 and 5 MHz); at 10 MHz the
+    blocks split, and split, the mesh and the CPU keep the host build."""
+    rin, g0, ieph = scenario
+    split_k = IqStream(rin, g0, ieph, _receivers(1)[0], fs=fs,
+                       device="cpu").split_k
+    assert split_k == (2 if fs == 10e6 else 1)
+    want = device == "cuda" and mesh is None and fs < 10e6
+    got = builds_on_card(torch.device(device),
+                         None if mesh is None else object(), split_k)
+    assert got is want
+
+
+@pytest.mark.parametrize("mode", ["kernel", "tiled"])
+def test_stream_asks_rule_on_kernel_path(scenario, monkeypatch, mode):
+    """The kernel path asks builds_on_card once a group and, where it
+    holds, packs with the stream's device; the tensor paths read no
+    planes and ask nothing."""
+    rin, g0, ieph = scenario
+    real, asked, devices = stream_mod.pack_group, [], []
+
+    def rule(*args):
+        asked.append(args)
+        return True
+
+    def pack(plans, device=None):
+        devices.append(device)
+        return real(plans, device)
+
+    monkeypatch.setattr(stream_mod, "builds_on_card", rule)
+    monkeypatch.setattr(stream_mod, "pack_group", pack)
+    stream = IqStream(rin, g0, ieph, _receivers(1)[0], fs=FS,
+                      block_samples=BS, mode=mode, device="cpu")
+    assert len(list(stream.superframes(4, max_blocks=2))) == 2
+    if mode == "kernel":
+        assert asked == [(stream.device, None, 1)] * 2
+        assert devices == [stream.device] * 2
+    else:
+        assert asked == devices == []
+
+
+@pytest.mark.parametrize("form", ["ints", "tensors", "mixed"])
+def test_stream_patch_dropped_sums_to_int(scenario, monkeypatch, form):
+    """IqStream.patch_dropped sums its groups' counts, ints of host builds
+    and one-element tensors of card builds alike, into an int, and reads
+    the same twice."""
+    rin, g0, ieph = scenario
+    real = stream_mod.pack_group
+    counts = []
+
+    def pack(plans, device=None):
+        group = real(plans, device)
+        i = len(counts)
+        counts.append(i + 2)
+        as_tensor = form == "tensors" or (form == "mixed" and i % 2)
+        return group._replace(patch_dropped=torch.tensor(
+            [i + 2], dtype=torch.int32) if as_tensor else i + 2)
+
+    monkeypatch.setattr(stream_mod, "pack_group", pack)
+    stream = IqStream(rin, g0, ieph, _receivers(1)[0], fs=FS,
+                      block_samples=BS, device="cpu")
+    assert stream.patch_dropped == 0
+    assert len(list(stream.superframes(6, max_blocks=2))) == 3
+    for _ in range(2):
+        got = stream.patch_dropped
+        assert type(got) is int and got == sum(counts) == 2 + 3 + 4
+
+
 # ---------------------------------------------------------------------------
 # on a card
 # ---------------------------------------------------------------------------
@@ -308,3 +388,68 @@ def test_kernel_equals_host_build_forced(cuda):
     assert prmi.cpu().numpy().tobytes() == want.prmi.tobytes()
     assert prmf.cpu().numpy().tobytes() == want.prmf.tobytes()
     assert int(dropped) == want.patch_dropped > 0
+
+
+@pytest.mark.cuda
+def test_stream_card_build_equals_host_build(cuda, monkeypatch):
+    """A K=8 IqStream(mode="kernel") at 2.6 MHz from 0.4 s before a 30 s
+    boundary, through the 2 h ephemeris-set change: for each dispatch
+    group, pack_group(plans, "cuda") equals pack_group(plans) word for
+    word in every array and in patch_dropped; the stream builds each
+    group's planes with one build_params launch, and its IQ equals the
+    same stream's through the host build word for word."""
+    rin = read_rinex2(ensure_fixtures()["rinex2"])
+    toc0 = GpsTime(int(rin.eph[0].toc_week[0]), float(rin.eph[0].toc_sec[0]))
+    g0 = scen.setup_scenario(rin, inc_gps_time(toc0, 3569.6))
+    ieph = scen.select_ephemeris_set(rin, g0)
+    xyz = _receivers(1, seed=17)[0]
+    n_blocks, k, fs = 4500, 8, 2.6e6
+
+    sched = Scheduler(rin, g0, ieph, xyz, fs=fs)
+    ramp, rem, sizes = IqStream.dispatch_ramp(k), n_blocks, []
+    while rem > 0:
+        plans = sched.plan_group(next(ramp), 300, total_blocks=rem)
+        rem -= sum(p.n_blocks for p in plans)
+        sizes.append([p.n_blocks for p in plans])
+        card, host = pack_group(plans, cuda), pack_group(plans)
+        assert all(t.device.type == "cuda" for t in card.arrays)
+        _assert_args_equal(card.arrays, host.arrays)
+        assert (card.block_samples, card.n_orig) == (host.block_samples,
+                                                     host.n_orig)
+        assert int(card.patch_dropped) == host.patch_dropped
+    assert sizes[0] == [4] and len(sizes) == 5, sizes
+    assert (ieph, sched.ieph) == (0, 1), "no ephemeris-set change"
+
+    def run():
+        stream = IqStream(rin, g0, ieph, xyz, fs=fs, mode="kernel",
+                          device=cuda, superframes_per_dispatch=k)
+        before = sc.build_params_launch_count()
+        out = list(stream.superframes(n_blocks, as_device=True))
+        torch.cuda.synchronize()
+        return stream, out, sc.build_params_launch_count() - before
+
+    card_stream, card_out, card_builds = run()
+    monkeypatch.setattr(stream_mod, "builds_on_card", lambda *a: False)
+    host_stream, host_out, host_builds = run()
+    assert (card_builds, host_builds) == (len(sizes), 0)
+    assert [g.shape[0] for g in card_out] == [sum(s) for s in sizes]
+    for i, (got, want) in enumerate(zip(card_out, host_out, strict=True)):
+        assert torch.equal(got, want), f"group {i}"
+    dropped = card_stream.patch_dropped
+    assert type(dropped) is int and dropped == host_stream.patch_dropped
+
+
+@pytest.mark.cuda
+def test_dropped_count_across_streams(cuda):
+    """launch.DroppedCount sums one-element card tensors added on two
+    CUDA streams in turn, and host ints, into an int, the same twice."""
+    count = DroppedCount()
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    for i in range(4):
+        with torch.cuda.stream(streams[i % 2]):
+            count.add(torch.full((1,), i + 1, dtype=torch.int32,
+                                 device=cuda))
+    count.add(5)
+    for _ in range(2):
+        got = count.value
+        assert type(got) is int and got == 1 + 2 + 3 + 4 + 5
