@@ -53,7 +53,11 @@ exits non-zero):
      tables, sf_map and patch_dropped);
   6. Monte-Carlo, held: B=4 receivers a few metres apart, 8 blocks from
      0.4 s before a 30 s boundary; each receiver's rows equal a solo
-     IqStream(mode="kernel") on the card word for word;
+     IqStream(mode="kernel") on the card word for word; then at 10 MHz,
+     every block split into 2 sub-rows, B=4 x 300 blocks in three calls
+     (the third on the lookahead's planes) equal solo split streams word
+     for word, and one launch of 3,000 blocks (6,000 sub-rows, 3.0e9
+     words) equals the same blocks launched 1,500 at a time;
   7. Monte-Carlo, full width: B=256 receivers within +-2 km of Tokyo x
      300 blocks at 2.6 MHz (76,800 rows), chunks of 3,000 rows consumed
      on the card by an int64 sum; the planes built on the card by one
@@ -1193,6 +1197,105 @@ def phase_mc_held(scen) -> None:
            "every receiver == its solo kernel stream across the boundary")
 
 
+SPLIT_FS = 10_000_000.0      # blocks of 1,000,000: 2 sub-rows of 500,000
+
+
+def _mc_split_held(rin, g0, ieph) -> dict:
+    """B=4 x 300 blocks at 10 MHz in three calls of 100 == solo split
+    streams word for word (phase_mc_split)."""
+    import torch
+
+    from pluto_gps_sim_tpu_torch.models.gpstime import inc_gps_time
+    from pluto_gps_sim_tpu_torch.parallel import MonteCarloBatch
+    from pluto_gps_sim_tpu_torch.runtime.stream import IqStream
+    rem = (30.0 - (g0.sec % 30.0)) % 30.0
+    g0b = inc_gps_time(g0, rem + 30.0 - 0.4)
+    n = int(SPLIT_FS / 10)
+    xyz = _scattered_receivers(4)
+    solo = []
+    for b in range(xyz.shape[0]):
+        st = IqStream(rin, g0b, ieph, xyz[b], fs=SPLIT_FS, mode="kernel",
+                      device="cuda")
+        assert st.split_k == 2, st.split_k
+        # the stream's as_device sub-rows, laid side by side as blocks
+        rows = st.split_k * st.sub_block_samples
+        solo.append(torch.cat([d.view(-1, rows)[:, :n] for d in
+                               st.superframes(300, as_device=True)]))
+    mc = MonteCarloBatch(rin, g0b, ieph, xyz, fs=SPLIT_FS)
+    assert (mc.split_k, mc.sub_block_samples) == (2, 500_000)
+    bad = words = 0
+    for call in range(3):
+        for off, dev in mc.superframes(100, "cuda", chunk_blocks=100,
+                                       as_device=True):
+            want = solo[off // 100][call * 100:(call + 1) * 100]
+            assert dev.shape == want.shape, (dev.shape, want.shape)
+            bad += int((dev != want).sum())
+            words += dev.numel()
+    # join the lookahead the third call left planning
+    mc.plan_blocks(1)
+    held = {"words": words, "differing_words": bad,
+            "lookahead_hits": mc.lookahead_hits,
+            "patch_dropped": mc.patch_dropped}
+    print(f"[mc_split] B=4 x 300 blocks at 10 MHz vs solo split streams: "
+          f"{bad} of {words} words differ, lookahead hits "
+          f"{mc.lookahead_hits}", flush=True)
+    if bad or mc.lookahead_hits != 1:
+        raise AssertionError(f"split batch vs solo streams: {held}")
+    return held
+
+
+def _mc_split_chunk(rin, g0, ieph, xyz0) -> dict:
+    """The benchmark cell's chunk, 10 receivers x 300 blocks = 3,000
+    blocks in one launch, == the same blocks launched 1,500 at a time
+    (phase_mc_split)."""
+    import numpy as np
+    import torch
+
+    from pluto_gps_sim_tpu_torch.parallel import MonteCarloBatch
+    xyz = xyz0[None, :] + np.random.RandomState(1).uniform(
+        -2000.0, 2000.0, (10, 3))
+
+    def chunks(chunk_blocks):
+        return MonteCarloBatch(rin, g0, ieph, xyz, fs=SPLIT_FS).superframes(
+            300, "cuda", chunk_blocks=chunk_blocks, as_device=True)
+
+    (_, big), = chunks(3000)
+    assert big.shape == (3000, int(SPLIT_FS / 10)), big.shape
+    bad = chunk_sum = 0
+    for off, dev in chunks(1500):
+        bad += int((big[off:off + dev.shape[0]] != dev).sum())
+        chunk_sum += int(dev.sum(dtype=torch.int64))
+    one = int(big.sum(dtype=torch.int64))
+    chunk = {"words": big.numel(), "differing_words": bad,
+             "sum_one_launch": one, "sum_of_chunks": chunk_sum}
+    print(f"[mc_split] one launch of 6,000 sub-rows ({big.numel()} words) "
+          f"vs 2 launches of 1,500 blocks: {bad} words differ, sums "
+          f"{one} / {chunk_sum}", flush=True)
+    if bad or one != chunk_sum or one == 0:
+        raise AssertionError(f"split chunk vs its halves: {chunk}")
+    return chunk
+
+
+def phase_mc_split(scen) -> dict:
+    """A 10 MHz batch, every block split into 2 sub-rows: B=4 x 300 blocks
+    in three calls of 100 (the third takes the lookahead's planes), on
+    card-uploaded planes, == per-receiver split kernel streams word for
+    word; then one launch at the benchmark cell's chunk (3,000 blocks,
+    6,000 sub-rows, 3.0e9 words) == the same rows launched 1,500 blocks
+    at a time, words and int64 sums.  The ~30 GB it held goes back to
+    the card before the next phase (the mesh's ranks share the card)."""
+    import torch
+    rin, g0, ieph, xyz0 = scen
+    t0 = time.perf_counter()
+    out = {"held": _mc_split_held(rin, g0, ieph),
+           "chunk": _mc_split_chunk(rin, g0, ieph, xyz0)}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    _phase("montecarlo split 10 MHz", t0,
+           "B=4 == solo split streams; 3,000-block launch == its halves")
+    return out
+
+
 def phase_mc_full(scen) -> tuple[int, int, dict]:
     """B=256 x 300 blocks through the kernel, consumed on the card."""
     import numpy as np
@@ -1745,6 +1848,7 @@ def main() -> int:
     long_builds = sc.build_params_launch_count()
     assert long_launches > 0, "the long-run gates never launched the kernel"
     phase_mc_held(scen)
+    mc_split = phase_mc_split(scen)
     mc_launches, mc_err, mc = phase_mc_full(scen)
     build = phase_build_params(scen)
     mesh_launches, mesh = phase_mesh()
@@ -1780,6 +1884,7 @@ def main() -> int:
         {**kernels, "card": card, "timing": timing, "k1_sass": k1,
          "realtime_factor": rtf,
          "golden": golden, "long_run": long_run, "montecarlo": mc,
+         "montecarlo_split": mc_split,
          "build_params": build,
          "mesh": mesh,
          "receiver": receiver, "realtime_wall_s": realtime_wall,

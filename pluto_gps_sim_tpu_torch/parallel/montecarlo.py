@@ -8,7 +8,9 @@ receiver (plutogpssim.c:2203).  On a GPU the marginal cost of more
 receivers is tiny: every trajectory contributes an independent set of
 0.1 s blocks, and blocks are the kernel's outer grid axis, so a batch of
 B receivers over M blocks is ONE kernel launch over B*M receiver-major
-rows (or one per chunk_blocks rows).
+rows (or one per chunk_blocks rows).  A block past the kernel's Q24
+range (fs > 5.24 MHz at 0.1 s blocks) is split_k re-anchored sub-rows,
+as in IqStream, and the batch yields whole blocks all the same.
 
 Control plane (batched; the naive form — B sequential Schedulers each
 making its own jit round-trips — costs ~3x the kernel time at B=256):
@@ -60,7 +62,7 @@ from ..ops.epoch import (solve_ranges, solve_ranges_batch,
 from ..ops.synth_torch import resolve_device
 from ..runtime import trace
 from ..runtime.launch import (DroppedCount, device_view, launch_blocks,
-                              pack_group, unpack_rows)
+                              pack_group, split_geometry, unpack_rows)
 from ..runtime.scheduler import Scheduler, _gather_eph
 
 __all__ = ["MonteCarloBatch"]
@@ -94,19 +96,6 @@ class MonteCarloBatch:
             raise ValueError("xyz_batch must be [B, 3] or [B, numd, 3]")
         self.B = xyz_batch.shape[0]
         self.rin = rin
-        bs = int(block_samples or round(fs / 10))
-        if bs > sc.MAX_BLOCK_SAMPLES:
-            # the single-receiver stream splits over-long blocks into
-            # re-anchored sub-blocks (ops.synth_torch.split_plan in
-            # runtime.launch.pack_group's host build); the batch's card
-            # build does not split and its rows are whole blocks — fail
-            # with guidance instead of build_params' range check
-            raise ValueError(
-                f"block_samples={bs} exceeds the synthesis kernel's Q24 "
-                f"range ({sc.MAX_BLOCK_SAMPLES}; fs <= 5.24 MHz at "
-                f"0.1 s blocks); Monte-Carlo batches do not sub-block "
-                f"split — use fs <= 5.24 MHz, or per-receiver IqStream "
-                f"runs (which split transparently)")
         self.nav_cache = NavCache()
         # batched initial-allocation solves at t_0 (motion sample 0)
         pre = self._alloc_precomp(rin.eph[ieph], start, xyz_batch[:, 0])
@@ -117,6 +106,10 @@ class MonteCarloBatch:
                       nav_cache=self.nav_cache, alloc_precomp=pre[b])
             for b in range(self.B)]
         self.block_samples = self.scheds[0].block_samples
+        # blocks past the kernel's Q24 range launch as split_k sub-rows
+        # of sub_block_samples (runtime.launch.pack_group splits them)
+        self.split_k, self.sub_block_samples = split_geometry(
+            self.block_samples)
         self._dropped = DroppedCount()   # dropped gain-trunc patches
         self._streams: dict = {}     # the batch's CUDA stream, per device
         self._last_key = None        # the last superframes() call's key
@@ -160,10 +153,13 @@ class MonteCarloBatch:
         (prmi, prmf, ca2, sf_map), packed by runtime.launch.pack_group.
 
         With no device, or a CPU one, they are host numpy arrays.  With
-        a CUDA device the parameter planes are built on the card by
-        ops.synth_cuda.build_params from the plans' raw fields, staged
-        through pinned memory, and all four are device tensors, enqueued
-        on the current stream and not synchronized.
+        a CUDA device all four are device tensors, enqueued on the
+        current stream and not synchronized: the parameter planes built
+        on the card by ops.synth_cuda.build_params from the plans' raw
+        fields, staged through pinned memory, or, where blocks pass the
+        kernel's Q24 range, built and split into sub-rows on the host
+        and uploaded from pinned memory.  Rows are sub-rows, split_k a
+        block, where blocks are split.
 
         All trajectories share the scenario clock, so their superframe
         boundaries align and every plan() round covers the same block
@@ -345,21 +341,23 @@ class MonteCarloBatch:
         block k; each yielded chunk covers rows [block_offset,
         block_offset + len).  as_device=True yields the packed int32
         tensor [len, N] on the device (ordered on the consumer's current
-        CUDA stream) instead of host int16 [len, N, 2].  On CUDA chunk
-        k+1 launches while chunk k's D2H into a pinned host buffer
-        completes (one-deep software pipeline on a stream of its own,
-        runtime.launch.launch_blocks).
+        CUDA stream) instead of host int16 [len, N, 2]; where blocks
+        are split it is a view of the launch's sub-rows laid side by
+        side and trimmed to N.  On CUDA chunk k+1 launches while chunk
+        k's D2H into a pinned host buffer completes (one-deep software
+        pipeline on a stream of its own, runtime.launch.launch_blocks).
 
         chunk_blocks bounds the rows per kernel launch so the packed
-        output fits device memory at large B (4*N bytes per row); the
-        pipeline keeps up to TWO chunks' outputs live on the device at
-        once, so size chunk_blocks so two chunks fit.  Default: the
-        whole batch in one launch.
+        output fits device memory at large B (4*split_k*sub_block_samples
+        bytes per block); the pipeline keeps up to TWO chunks' outputs
+        live on the device at once, so size chunk_blocks so two chunks
+        fit.  Default: the whole batch in one launch.
 
         mesh (a parallel.mesh.Mesh) shards the batch over the mesh's
         ranks (parallel.shard), as the JAX package's mesh= does; device
         must name mesh.device.  Mesh runs launch whole (chunk_blocks
-        does not apply), and every rank yields the whole batch.
+        does not apply), and every rank yields the whole batch; a mesh
+        does not run split blocks and raises ValueError.
 
         Without a mesh, the second and every later call in a row with
         the same n_blocks and device starts, once its planes are ready
@@ -370,6 +368,12 @@ class MonteCarloBatch:
         back as they were (lookahead_misses).  The bytes are the same
         either way."""
         if mesh is not None:
+            if self.split_k > 1:
+                raise ValueError(
+                    f"a mesh does not run a batch whose blocks are split "
+                    f"({self.block_samples} samples, past the kernel's "
+                    f"Q24 range of {sc.MAX_BLOCK_SAMPLES}); run it on one "
+                    f"device")
             from .mesh import check_mesh_device
             dev = check_mesh_device(mesh, device)
             key = None
@@ -378,7 +382,7 @@ class MonteCarloBatch:
             key = (int(n_blocks), dev)
         repeat = key is not None and key == self._last_key
         total = self.B * n_blocks
-        n = self.block_samples
+        n, k, sub = self.block_samples, self.split_k, self.sub_block_samples
         cuda_stream = self._stream(dev) if dev.type == "cuda" else None
         with torch.cuda.stream(cuda_stream):
             # a taken lookahead's counts are added on the stream that
@@ -398,20 +402,25 @@ class MonteCarloBatch:
         prmi, prmf, ca2, sf_map = planes
 
         def launch(lo, hi):
-            arrays = (prmi[lo:hi], prmf[lo:hi], ca2, sf_map[lo:hi])
+            # blocks [lo, hi) are kernel rows [lo*k, hi*k)
+            rows = slice(lo * k, hi * k)
+            arrays = (prmi[rows], prmf[rows], ca2, sf_map[rows])
             if cuda_stream is None:
-                return launch_blocks(arrays, n, dev, None, not as_device,
+                return launch_blocks(arrays, sub, dev, None, not as_device,
                                      mesh)
             with torch.cuda.device(dev), torch.cuda.stream(cuda_stream):
-                return launch_blocks(arrays, n, dev, cuda_stream,
+                return launch_blocks(arrays, sub, dev, cuda_stream,
                                      not as_device, mesh)
 
         def finish(off, out, done):
             if as_device:
-                return off, device_view(out, done, dev)
+                # a block's sub-rows side by side, trimmed to the block:
+                # a view, nothing copied
+                out = device_view(out, done, dev)
+                return off, out.view(-1, k * sub)[:, :n]
             if done is not None:
                 done.synchronize()
-            return off, unpack_rows(out, n, n)
+            return off, unpack_rows(out, sub, n)
 
         step = total if chunk_blocks is None or mesh is not None \
             else max(1, chunk_blocks)

@@ -25,7 +25,7 @@ from ..ops.synth_torch import pack_plan, split_plan
 from . import trace
 
 __all__ = ["DroppedCount", "Packed", "SF_BLOCKS", "device_view",
-           "launch_blocks", "pack_group", "unpack_rows"]
+           "launch_blocks", "pack_group", "split_geometry", "unpack_rows"]
 
 SF_BLOCKS = 300          # 0.1 s blocks in a 30 s superframe
 
@@ -81,6 +81,17 @@ class DroppedCount:
             return self._n
 
 
+def split_geometry(block_samples: int) -> tuple[int, int]:
+    """(K, sub): the kernel rows a block of block_samples becomes.  Within
+    the kernel's Q24 range (sc.MAX_BLOCK_SAMPLES) a block is one row,
+    (1, block_samples); past it, K = ceil(N / MAX_BLOCK_SAMPLES) equal
+    re-anchored sub-rows of sub = ceil(N / K) samples, as
+    ops.synth_torch.split_plan cuts them, the last running past the
+    block's end (K * sub >= N)."""
+    k = -(-block_samples // sc.MAX_BLOCK_SAMPLES)
+    return k, -(-block_samples // k)
+
+
 def _dedupe(tables: list, counts: list):
     """(the distinct tables by bytes, in first-seen order; an [M] int32
     map of every row to its table, tables[i] covering counts[i] rows)."""
@@ -107,28 +118,22 @@ def pack_group(plans: list, device=None) -> Packed:
 
     With no device, or a CPU one, everything is built on the host:
     pack_plan(tables=False) a plan, split_plan where a block passes the
-    kernel's Q24 range (sc.MAX_BLOCK_SAMPLES; rows are then sub-blocks)
-    and one build_group_params over the group.  With a CUDA device the
-    plans' raw fields are concatenated into pinned arrays, their nav-bit
-    tables deduped the same way, and sc.build_params builds the planes
-    there in one launch on the current stream, nothing synchronized;
-    it refuses blocks past the Q24 range with a ValueError.  Every
-    upload of the card build goes from pinned memory, so none holds the
-    calling thread behind the stream's earlier work."""
+    kernel's Q24 range (split_geometry; rows are then sub-blocks) and
+    one build_group_params over the group.  With a CUDA device and
+    blocks within the range, the plans' raw fields are concatenated into
+    pinned arrays, their nav-bit tables deduped the same way, and
+    sc.build_params builds the planes there in one launch on the current
+    stream, nothing synchronized.  With a CUDA device and blocks past
+    the range, the planes are built and split on the host as above and
+    go up from pinned memory on the current stream.  Every upload goes
+    from pinned memory, so none holds the calling thread behind the
+    stream's earlier work."""
     n = plans[0].block_samples
     dev = None if device is None else torch.device(device)
     on_card = dev is not None and dev.type != "cpu"
+    k, sub = split_geometry(n)
     rows = [p.n_blocks for p in plans]
-    sub = n
-    if not on_card:
-        dps = [pack_plan(p, tables=False) for p in plans]
-        if n > sc.MAX_BLOCK_SAMPLES:
-            with trace.child("packing.split", n=sum(rows) / SF_BLOCKS):
-                dps = [split_plan(dp, sc.MAX_BLOCK_SAMPLES) for dp in dps]
-            rows, sub = [dp.n_blocks for dp in dps], dps[0].block_samples
-        bp = sc.build_group_params(dps)
-        prmi, prmf, dropped = bp.prmi, bp.prmf, bp.patch_dropped
-    else:
+    if on_card and k == 1:
         m = sum(rows)
         fields = sc.PlanFields(
             torch.empty((m, MAX_CHAN), dtype=torch.bool, pin_memory=True),
@@ -140,12 +145,20 @@ def pack_group(plans: list, device=None) -> Packed:
         np.concatenate([p.active for p in plans], out=fields.active.numpy())
         for planes, names in ((fields.real, sc._REAL_FIELDS),
                               (fields.ints, sc._INT_FIELDS)):
-            for k, name in enumerate(names):
+            for i, name in enumerate(names):
                 np.concatenate([getattr(p, name) for p in plans],
-                               out=planes[k].numpy())
+                               out=planes[i].numpy())
         nav_tabs, bits_map = _dedupe([p.bits for p in plans], rows)
         prmi, prmf, dropped = sc.build_params(
             fields, np.stack(nav_tabs), bits_map, n, device=dev)
+    else:
+        dps = [pack_plan(p, tables=False) for p in plans]
+        if k > 1:
+            with trace.child("packing.split", n=sum(rows) / SF_BLOCKS):
+                dps = [split_plan(dp, sc.MAX_BLOCK_SAMPLES) for dp in dps]
+            rows = [dp.n_blocks for dp in dps]
+        bp = sc.build_group_params(dps)
+        prmi, prmf, dropped = bp.prmi, bp.prmf, bp.patch_dropped
     ca_tabs, sf_map = _dedupe([p.ca2 for p in plans], rows)
     # the deduped list as it is: the CUDA kernel takes any table count,
     # so the JAX package's power-of-two padding of a batch's tables (a
@@ -153,9 +166,19 @@ def pack_group(plans: list, device=None) -> Packed:
     ca_tabs = sc.pack_ca_tables(ca_tabs)
     if on_card:
         sc.check_sf_map(sf_map, ca_tabs.shape[0])
-        ca_tabs, sf_map = (torch.from_numpy(a).pin_memory().to(
-            dev, non_blocking=True) for a in (ca_tabs, sf_map))
+        ca_tabs, sf_map = _upload((ca_tabs, sf_map), dev)
+        if k > 1:
+            with trace.child("transfer.pin_alloc",
+                             nbytes=prmi.nbytes + prmf.nbytes):
+                prmi, prmf = _upload((prmi, prmf), dev)
     return Packed((prmi, prmf, ca_tabs, sf_map), sub, n, dropped)
+
+
+def _upload(arrays, device: torch.device) -> list:
+    """Host arrays as device tensors, each copied from a pinned staging
+    copy on the current stream without waiting."""
+    return [torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(
+        device, non_blocking=True) for a in arrays]
 
 
 def launch_blocks(arrays, block_samples: int, device: torch.device,

@@ -27,13 +27,12 @@ import torch
 
 from ..models.gpstime import GpsTime
 from ..ingest.rinex import RinexResult
-from ..ops import synth_cuda as sc
 from ..ops.synth_torch import (pack_plan, resolve_device,
                                synth_superframe_precise_async,
                                synth_superframe_tiled_async)
 from . import trace
 from .launch import (SF_BLOCKS, DroppedCount, _to_host_async, device_view,
-                     launch_blocks, pack_group, unpack_rows)
+                     launch_blocks, pack_group, split_geometry, unpack_rows)
 from .scheduler import Scheduler, copy_snapshot
 
 __all__ = ["IqStream"]
@@ -140,13 +139,10 @@ class IqStream:
         # of the kernel's grid, so the kernel covers ANY -s >= 1 MHz like
         # the reference (c:2326-2329); _finish reassembles [M*K, sub] ->
         # [M, N].  The tensor paths have no range cap and never split.
+        # Public for as_device consumers (see superframes()).
         n = self.sched.block_samples
-        self.split_k = -(-n // sc.MAX_BLOCK_SAMPLES) \
-            if self._synth is None and n > sc.MAX_BLOCK_SAMPLES else 1
-        # public split geometry for as_device consumers (see
-        # superframes()); sub_block_samples matches what split_plan
-        # derives per dispatch
-        self.sub_block_samples = -(-n // self.split_k)
+        self.split_k, self.sub_block_samples = \
+            split_geometry(n) if self._synth is None else (1, n)
         # the prepared groups' dropped patch words (patch_dropped)
         self._dropped = DroppedCount()
         if rec is not None:

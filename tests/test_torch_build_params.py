@@ -373,6 +373,32 @@ def test_lookahead_on_card_equals_one_launch(scenario, cuda):
 
 
 @pytest.mark.cuda
+def test_split_batch_on_card_equals_host_build(scenario, cuda):
+    """A B=8 batch at 10 MHz, every block past the kernel's range: the
+    card's plan_blocks builds and splits on the host (no build_params
+    launch) and uploads planes, tables and sf_map equal to the host
+    build's byte for byte; its as_device blocks, each a view of 2
+    sub-rows, equal the host rows generate() fetches."""
+    rin, g0, ieph = scenario
+    xyz = _receivers(8, seed=19)
+    host = MonteCarloBatch(rin, g0, ieph, xyz, fs=10e6)
+    card = MonteCarloBatch(rin, g0, ieph, xyz, fs=10e6)
+    sc.reset_launch_count()
+    got = card.plan_blocks(3, device=cuda)
+    assert all(t.device.type == "cuda" for t in got)
+    _assert_args_equal(got, host.plan_blocks(3))
+    assert got[0].shape[0] == 8 * 3 * 2
+    assert sc.build_params_launch_count() == 0
+    want = MonteCarloBatch(rin, g0, ieph, xyz, fs=10e6).generate(3, cuda)
+    words = torch.cat([d for _, d in MonteCarloBatch(
+        rin, g0, ieph, xyz, fs=10e6).superframes(3, cuda, chunk_blocks=5,
+                                                 as_device=True)])
+    torch.cuda.synchronize()
+    assert words.shape == (24, 1_000_000)
+    assert words.cpu().numpy().tobytes() == want.tobytes()
+
+
+@pytest.mark.cuda
 def test_kernel_equals_host_build_forced(cuda):
     """Plans forced through the nudge, patch words and a row that
     overflows its 7 slots: the kernel's planes equal build_group_params'

@@ -379,15 +379,6 @@ def test_mc_patch_dropped_counts_each_taken_batch_once(scenario,
     assert (mc.lookahead_hits, mc.lookahead_misses) == (1, 1)
 
 
-def test_mc_rejects_blocks_beyond_kernel_range(scenario):
-    """fs > 5.24 MHz exceeds the kernel's Q24 block range; the
-    single-receiver stream splits transparently but the batch path does
-    not — MonteCarloBatch fails with guidance at construction."""
-    rin, g0, ieph = scenario
-    with pytest.raises(ValueError, match="Q24 range"):
-        MonteCarloBatch(rin, g0, ieph, _perturbed_receivers(2), fs=10e6)
-
-
 def test_mc_cuda_without_gpu_raises(scenario, monkeypatch):
     """device="cuda" without a GPU raises; the batch never moves to the
     CPU twin on its own."""

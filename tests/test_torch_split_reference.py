@@ -90,3 +90,48 @@ def test_float32_control_fails_a_limit(fixture_paths):
     assert (r["mismatch_frac"] > judge.LIMITS["mismatch_frac"]
             or r["max_err"] > judge.LIMITS["max_err"]), r
     assert not judge.verdict(r)[0]
+
+
+# A wide-10m.stream run of the H100 benchmark (seed 2147516201) failed
+# `correct` on one sample of its kept blocks: block 53,562 of the stream
+# started 73,285.5 s after the day file's first time of clock, sample
+# 978,987 (sub-row 1, sample 478,987), I and Q off by 296 and 164.
+STRADDLE_SEED = 2147516201
+STRADDLE = (73_285.5, 53_562, 978_987, 1)     # offset, block, sample, slot
+
+
+def test_split_keeps_the_chip_at_a_kernel_straddle(tmp_path):
+    """Channel slot 1's code phase there lies 1.8e-12 chips past a chip
+    edge.  split_plan's re-anchored sub-row keeps the exact phase within
+    1e-13 chips, and the split block through the f64 precise path equals
+    the unsplit block word for word, and the reference at that sample:
+    the miss is the kernel's Q36 code-phase floor, not the split."""
+    from fractions import Fraction
+
+    from harness import runner, spec as specmod
+    from pluto_gps_sim_tpu_torch.ops.synth_torch import (
+        pack_plan, split_plan, synth_superframe_precise_async)
+    offset, block, n, slot = STRADDLE
+    cfg = specmod.config(specmod.load_spec(), "wide-10m")
+    scen, _ = runner.make_scenario(cfg, STRADDLE_SEED, tmp_path)
+    assert scen.start_offset_s == offset
+    st = runner.Program(scen, "cpu").stream(offset)
+    st.fast_forward(block)
+    dp = pack_plan(st.sched.plan(1), tables=True)
+    dps = split_plan(dp, sc.MAX_BLOCK_SAMPLES)
+    assert (dps.n_blocks, dps.block_samples) == (2, 500_000)
+
+    v = Fraction(float(dp.v[0, slot]))
+    exact = Fraction(float(dp.cp0[0, slot])) + v * n
+    assert 0 < exact - round(exact) < Fraction(2, 10**12)
+    j = n - dps.block_samples
+    split = (Fraction(float(dps.cp0[1, slot])) + v * j
+             + 1023 * int(dps.ic0[1, slot] - dp.ic0[0, slot]))
+    assert abs(split - exact) < Fraction(1, 10**13)
+
+    unsplit = synth_superframe_precise_async(dp, "cpu").numpy()[0]
+    joined = synth_superframe_precise_async(dps, "cpu").numpy()
+    assert np.array_equal(joined.reshape(-1, 2)[:dp.block_samples], unsplit)
+    want = reference.replay(scen.nav_path, offset, scen.xyz, scen.fs,
+                            [block], "cpu", torch.float64)[block]
+    assert np.array_equal(unsplit[n], want[n])
